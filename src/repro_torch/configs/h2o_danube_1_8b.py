@@ -1,0 +1,24 @@
+"""h2o-danube-1.8b [dense] — llama+mistral mix with sliding-window attention.
+
+24L d_model=2560 32H (GQA kv=8) d_ff=6912 vocab=32000
+[arXiv:2401.16818; hf]
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="h2o-danube-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=6912,
+    vocab_size=32000,
+    head_dim=80,
+    pattern=("swa",),
+    sliding_window=4096,
+    rope_theta=10000.0,
+    tie_embeddings=False,
+    source="arXiv:2401.16818; hf",
+)

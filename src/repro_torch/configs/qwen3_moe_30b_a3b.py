@@ -1,0 +1,24 @@
+"""qwen3-moe-30b-a3b [moe] — 128 experts top-8.
+
+48L d_model=2048 32H (GQA kv=4) d_ff=768/expert vocab=151936
+[hf:Qwen/Qwen3-30B-A3B; hf]
+"""
+
+from .base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-30b-a3b",
+    family="moe",
+    n_layers=48,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=768,
+    vocab_size=151936,
+    head_dim=128,
+    pattern=("moe",),
+    rope_theta=1_000_000.0,
+    tie_embeddings=False,
+    moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=768),
+    source="hf:Qwen/Qwen3-30B-A3B; hf",
+)
