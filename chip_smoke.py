@@ -6,20 +6,29 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. device  -- CUDA present; the card's name and power limit from nvidia-smi;
   2. build   -- nvcc builds the CUDA kernels from the sources in this checkout
-                (into src/repro_torch/kernels/_build/), Triton JITs its kernel;
-  3. kernels -- each kernel of the serving path, at the path's shapes, held
-                against its plain PyTorch version on the card, and timed beside
-                the plain version, a PyTorch library call and its bound;
+                (into src/repro_torch/kernels/_build/, one nvcc per source, all
+                started together), Triton JITs its kernels;
+  3. kernels -- each kernel of the serving and training paths, at the paths'
+                shapes, held against its plain PyTorch version on the card,
+                and timed beside the plain version, a PyTorch library call and
+                its bound;
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
                 tokens, max_len 1024, so the 512-slot sliding-window ring wraps.
                 Launch counters prove that every attention layer and every norm
                 of every step went through the kernels; decode logits are held
-                against the teacher-forced forward.
-  5. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+                against the teacher-forced forward, which runs flash attention;
+  5. train   -- h2o-danube-1.8b at full width (24 layers, d_model 2560, bf16,
+                random weights from --seed) restored from checkpoint DU files:
+                one eval, 4 AdamW steps with remat on one batch of 2 x 8192
+                tokens, one more eval.  Launch counters prove that every
+                attention and every norm, forward, recompute and backward, went
+                through the kernels; the loss must fall;
+  6. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
-``--profile`` adds a torch.profiler breakdown of eight decode steps.
+``--profile`` adds torch.profiler breakdowns of eight decode steps and of one
+train step.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -50,7 +59,28 @@ CHECK_POSITIONS = (0, 511, 512, 543)
 LOGIT_TOL = 5e-2  # max |decode - forward| over max(1, max |forward|)
 LOGIT_MEAN_TOL = 1e-2  # mean |decode - forward| over the same scale
 
+TRAIN_MODEL = "h2o-danube-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
+TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
+
+# phase 3 shapes.  Flash attention: (label, B, S, Hq, Hkv, D, causal, window);
+# the first is the training path's, the others gemma3-1b's teacher-forced
+# forward of phase 4 (5 sliding-window layers : 1 global)
+FLASH_CASES = [
+    ("h2o-danube train", 2, 8192, 32, 8, 80, True, 4096),
+    ("gemma3-1b forward, window", 4, 544, 4, 1, 256, True, 512),
+    ("gemma3-1b forward, global", 4, 544, 4, 1, 256, True, None),
+]
+FLASH_FP32_CASES = [
+    ("fp32 ragged", 2, 300, 8, 2, 80, True, 128),
+    ("fp32 non-causal", 1, 200, 4, 1, 256, False, None),
+]
+# RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
+# step's, 2176 x 1152 gemma3-1b's forward
+RMSNORM_BWD_CASES = [(16384, 2560), (4, 2560), (2176, 1152)]
+
 DECODE_SRC = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 RMSNORM_SRC = "src/repro_torch/kernels/rmsnorm/rmsnorm.py"
 
 
@@ -130,9 +160,10 @@ def phase_device(torch):
 # ------------------------------------------------------------ phase 2
 def phase_build(torch):
     from repro_torch.kernels import build
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
 
     t0 = time.perf_counter()
+    build.build_all()
     for name in build.SOURCES:
         build.load(name)
     nvcc_s = time.perf_counter() - t0
@@ -142,11 +173,37 @@ def phase_build(torch):
     for dtype in (torch.bfloat16, torch.float32):
         rmsnorm(x.to(dtype), w)
         rmsnorm(x.to(dtype), w, residual=x.to(dtype))
+        rmsnorm_bwd(x.to(dtype), x.to(dtype), w.to(dtype))
     sync(torch)
     triton_s = time.perf_counter() - t0
     log(f"build: nvcc {nvcc_s:.2f} s for {sorted(build.SOURCES)} (ptxas register and "
         f"spill report in {build.BUILD_DIR.relative_to(ROOT)}/*.log), "
         f"triton JIT {triton_s:.2f} s")
+
+
+def counters():
+    """(kernel name, wrapper, attribute) of every launch counter."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    return [
+        ("decode_attention", dec_ops.decode_attention, "launches"),
+        ("rmsnorm", norm_ops.rmsnorm, "launches"),
+        ("rmsnorm_residual", norm_ops.rmsnorm, "residual_launches"),
+        ("flash_attention", fa_ops.flash_attention, "launches"),
+        ("flash_attention_bwd", fa_ops.flash_attention, "backward_launches"),
+        ("rmsnorm_bwd", norm_ops.rmsnorm, "backward_launches"),
+    ]
+
+
+def reset_counts() -> None:
+    for _, fn, attr in counters():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, fn, attr in counters()}
 
 
 # ------------------------------------------------------------ phase 3
@@ -252,15 +309,155 @@ def rmsnorm_cases(torch, timer, gen, residual: bool):
     return cases
 
 
+def kept_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs that the mask keeps in one (batch, head) of a
+    self-attention of length s: the work a kernel that skips the rest does."""
+    import numpy as np
+
+    q = np.arange(s, dtype=np.int64)
+    hi = q if causal else np.full(s, s - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, dtype=np.int64)
+    return int((hi - lo + 1).sum())
+
+
+def flash_cases(torch, timer, gen):
+    """B1 forward and backward against their plain versions; returns
+    (forward cases, backward cases)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    fwd_cases, bwd_cases = [], []
+    for label, b, s, hq, hkv, d, causal, window in FLASH_CASES + FLASH_FP32_CASES:
+        dtype = torch.float32 if label.startswith("fp32") else torch.bfloat16
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+        q, k, v, dout = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        name = f"flash_attention {label} [{b},{s},{hq}/{hkv},{d}] window={window}"
+        out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
+        ref, ref_lse = flash_attention_ref(q, k, v, causal=causal, window=window)
+        grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+        ref_grads = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+        sync(torch)
+        rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
+        err = max(check_close(name, out, ref, rtol, 1e-5),
+                  check_close(name + " lse", lse, ref_lse, 1e-4, 1e-5))
+        # gradients sum over up to S keys (dq) or S x G query rows (dk, dv) in
+        # another order than the plain version: absolute term scaled by the
+        # tensor's largest value
+        gerr = max(check_close(f"{name} d{n}", g, r, rtol, 1e-5 * max(1.0, r.float().abs().max().item()))
+                   for n, g, r in zip("qkv", grads, ref_grads))
+        del ref, ref_lse, ref_grads, grads
+        if dtype != torch.bfloat16:
+            log(f"kernels: {name} fp32 max|err| out {err:.2e}, grads {gerr:.2e} (rtol 1e-4)")
+            continue
+        pairs = b * hq * kept_pairs(s, causal, window)
+        io = (2 * b * s * hq * d + 2 * b * s * hkv * d) * 2  # q, k, v in; out
+        lse_bytes = b * hq * s * 4
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        i = torch.arange(s, device=DEVICE)
+        mask = (i[None] <= i[:, None]) if causal else torch.ones(s, s, dtype=torch.bool, device=DEVICE)
+        if window:
+            mask &= i[:, None] - i[None] < window
+        with torch.no_grad():
+            ms = timer(lambda: ops.flash_attention_fwd(q, k, v, causal, window))
+            plain = timer(lambda: flash_attention_ref(q, k, v, causal=causal, window=window))
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        bound, by = bound_ms(io + lse_bytes, 4 * pairs * d, BF16_FLOPS)
+        fwd_cases.append(dict(case=label, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=causal,
+                              window=window, dtype="bfloat16", pairs=pairs, ms=ms,
+                              plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                              max_abs_err=err))
+        log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound "
+            f"{bound:.4f} by {by}; {pairs:.4g} pairs), max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
+
+        bms = timer(lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window))
+        bplain = timer(lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal=causal, window=window))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+        dout_t = dout.transpose(1, 2)
+        blib = timer(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout_t, retain_graph=True))
+        del lib_out, qg, kg, vg
+        # q, k, v, out, dout, lse in; dq, dk, dv out
+        bbound, bby = bound_ms(2 * io + lse_bytes, 10 * pairs * d, BF16_FLOPS)
+        bwd_cases.append(dict(case=label, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=causal,
+                              window=window, dtype="bfloat16", pairs=pairs, ms=bms,
+                              plain_ms=bplain, library_ms=blib, bound_ms=bbound, bound_by=bby,
+                              max_abs_err=gerr))
+        log(f"kernels: {name} backward: {bms:.4f} ms (plain {bplain:.4f}, sdpa backward "
+            f"{blib:.4f}, bound {bbound:.4f} by {bby}), max|err| {gerr:.2e} (rtol 2^-7, atol "
+            f"1e-5 x max|ref|)")
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
+def rmsnorm_bwd_cases(torch, timer, gen):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+
+    eps = 1e-6
+    cases = []
+    for rows, d in RMSNORM_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(rows, d, generator=gen, device=DEVICE) * 3).to(dtype)
+            dy = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
+            w = (torch.randn(d, generator=gen, device=DEVICE) * 0.1).to(dtype)
+            name = f"rmsnorm_bwd rows={rows} D={d} {dtype}"
+            dx, dw = rmsnorm_bwd(dy, x, w, eps)
+            rdx, rdw = rmsnorm_bwd_ref(dy, x, w, eps)
+            sync(torch)
+            rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
+            # d(scale) sums over the rows in another order: absolute term
+            # scaled by its largest value
+            err = max(check_close(name + " dx", dx, rdx, rtol, 1e-5),
+                      check_close(name + " dscale", dw, rdw, rtol,
+                                  1e-5 * max(1.0, rdw.float().abs().max().item())))
+            if dtype != torch.bfloat16:
+                log(f"kernels: {name} max|err| {err:.2e} (rtol 1e-4)")
+                continue
+            ms = timer(lambda: rmsnorm_bwd(dy, x, w, eps))
+            plain = timer(lambda: rmsnorm_bwd_ref(dy, x, w, eps))
+            xg = x.detach().requires_grad_()
+            w1 = (1.0 + w.float()).to(dtype).requires_grad_()  # F.rms_norm scales by w
+            y = F.rms_norm(xg, (d,), w1, eps)
+            lib = timer(lambda: torch.autograd.grad(y, (xg, w1), dy, retain_graph=True))
+            del y
+            n_bytes = 3 * rows * d * 2 + 2 * d * 2  # x, dy in, dx out; w in, dscale out
+            bound, by = bound_ms(n_bytes, 10 * rows * d, FP32_FLOPS)
+            cases.append(dict(rows=rows, D=d, dtype="bfloat16", ms=ms, plain_ms=plain,
+                              library_ms=lib, bound_ms=bound, bound_by=by, max_abs_err=err))
+            log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, F.rms_norm backward "
+                f"{lib:.4f}, bound {bound:.4f} by {by}), max|err| {err:.2e} (rtol 2^-7)")
+    return cases
+
+
 def phase_kernels(torch, seed):
     timer = Timer(torch)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    return {
+    t0 = time.perf_counter()
+    fwd, bwd = flash_cases(torch, timer, gen)
+    results = {
         "decode_attention": decode_cases(torch, timer, gen),
         "rmsnorm": rmsnorm_cases(torch, timer, gen, residual=False),
         "rmsnorm_residual": rmsnorm_cases(torch, timer, gen, residual=True),
+        "flash_attention": fwd,
+        "flash_attention_bwd": bwd,
+        "rmsnorm_bwd": rmsnorm_bwd_cases(torch, timer, gen),
     }
+    del timer
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    log(f"kernels: {time.perf_counter() - t0:.1f} s")
+    return results
 
 
 # ------------------------------------------------------------ phase 4
@@ -270,6 +467,7 @@ def phase_serve(torch, seed, smi):
     from repro_torch.checkpoint import checkpoint_files
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
     from repro_torch.models import build_model
     from repro_torch.models.layers import unembed
@@ -290,24 +488,21 @@ def phase_serve(torch, seed, smi):
     prompts = torch.from_numpy(
         np.random.default_rng(seed).integers(0, cfg.vocab_size, (BATCH, PROMPT_LEN))
     )
-    dec_ops.decode_attention.launches = 0
-    norm_ops.rmsnorm.launches = 0
-    norm_ops.rmsnorm.residual_launches = 0
+    reset_counts()
     sync(torch)
     t0 = time.perf_counter()
     new = engine.generate(prompts, NEW_TOKENS)
     sync(torch)
     elapsed = time.perf_counter() - t0
-    launches = {"decode_attention": dec_ops.decode_attention.launches,
-                "rmsnorm": norm_ops.rmsnorm.launches,
-                "rmsnorm_residual": norm_ops.rmsnorm.residual_launches}
+    launches = read_counts()
     steps = PROMPT_LEN + NEW_TOKENS - 1
     n_attn = cfg.n_layers
     n_norm = 2 * cfg.n_layers + 1
     # the model adds its residuals itself, as the JAX model does, so the
     # residual variant is held against its plain version in phase 3 only
     expected = {"decode_attention": n_attn * steps, "rmsnorm": n_norm * steps,
-                "rmsnorm_residual": 0}
+                "rmsnorm_residual": 0, "flash_attention": 0, "flash_attention_bwd": 0,
+                "rmsnorm_bwd": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected} ({steps} steps)")
     if new.shape != (BATCH, NEW_TOKENS) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
@@ -332,8 +527,12 @@ def phase_serve(torch, seed, smi):
             if PROMPT_LEN - 1 <= i < seq.shape[1] - 1:
                 if not torch.equal(lg[:, 0].argmax(-1), seq[:, i + 1]):
                     raise AssertionError(f"engine token at position {i + 1} differs from decode")
+        before = fa_ops.flash_attention.launches
         hidden = api.forward(engine.params, seq, return_hidden=True)
         ref = unembed(hidden[:, list(CHECK_POSITIONS)], engine.params["embed"], cfg).float()
+        if fa_ops.flash_attention.launches != before + cfg.n_layers:
+            raise AssertionError(f"the forward launched flash attention "
+                                 f"{fa_ops.flash_attention.launches - before} times, not {cfg.n_layers}")
     dec = torch.stack([dec_logits[p] for p in CHECK_POSITIONS], dim=1)
     if not bool(dec.isfinite().all()) or dec.shape != (BATCH, len(CHECK_POSITIONS), cfg.vocab_size):
         raise AssertionError(f"decode logits {tuple(dec.shape)} not finite")
@@ -394,6 +593,154 @@ def phase_profile(torch, engine, cache, seq):
         log(f"profile:   {t / 1e3 / steps:8.4f} ms/step  {g}")
 
 
+# ------------------------------------------------------------ phase 5
+def train_launch_schedule(cfg) -> dict:
+    """Launches per train step that the remat schedule implies: every layer's
+    attention and two norms, plus the final norm, run once forward and once
+    backward; the layers of the checkpointed groups run forward again in the
+    backward pass (the tail and the final norm are not checkpointed)."""
+    n = cfg.n_layers
+    remat_layers = (n // len(cfg.pattern)) * len(cfg.pattern)
+    return {"flash_attention": n + remat_layers, "flash_attention_bwd": n,
+            "rmsnorm": (2 * n + 1) + 2 * remat_layers, "rmsnorm_bwd": 2 * n + 1,
+            "decode_attention": 0, "rmsnorm_residual": 0}
+
+
+def phase_train(torch, seed, smi):
+    import numpy as np
+
+    from repro_torch.bridge import params_from_files
+    from repro_torch.checkpoint import checkpoint_files, flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.training import make_eval_step, make_train_step
+
+    cfg = get_config(TRAIN_MODEL)
+    api = build_model(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    files = checkpoint_files(0, "h2o-danube-chip-smoke", api.init(seed=seed))
+    params = params_from_files(files, device=DEVICE)
+    n_bytes = sum(len(b) for b in files.values())
+    del files
+    opt = init_adamw(params)
+    n_params = sum(p.numel() for _, p in flatten_tree(params))
+    sync(torch)
+    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim_}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params) restored from {n_bytes / 2**30:.2f} "
+        f"GiB of checkpoint files, AdamW state on the device, in {time.perf_counter() - t0:.1f} s")
+
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    tokens = torch.from_numpy(tokens.astype(np.int32)).to(DEVICE)
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    eval_step = make_eval_step(api)
+    train_step = make_train_step(api, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                 total_steps=TRAIN_STEPS, microbatches=1, remat=True)
+    per_step = train_launch_schedule(cfg)
+    n = cfg.n_layers
+    per_eval = {name: 0 for name in per_step}
+    per_eval.update(flash_attention=n, rmsnorm=2 * n + 1)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sync(torch)
+    t0 = time.perf_counter()
+    ev0 = float(eval_step(params, batch)["loss"])
+    sync(torch)
+    eval_s = time.perf_counter() - t0
+    if read_counts() != per_eval:
+        raise AssertionError(f"eval launches {read_counts()} != {per_eval}")
+    history, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        before = read_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        params, opt, metrics = train_step(params, opt, batch)
+        sync(torch)
+        step_s.append(time.perf_counter() - t0)
+        got = {k: v - before[k] for k, v in read_counts().items()}
+        if got != per_step:
+            raise AssertionError(f"step {i} launches {got} != {per_step}")
+        history.append({k: float(v) for k, v in metrics.items()})
+        log(f"train: step {i}: loss {history[-1]['loss']:.6f}, grad_norm "
+            f"{history[-1]['grad_norm']:.6f}, lr {history[-1]['lr']:.3e}, {step_s[-1]:.3f} s")
+    ev1 = float(eval_step(params, batch)["loss"])
+    sync(torch)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    expected = {k: TRAIN_STEPS * per_step[k] + 2 * per_eval[k] for k in per_step}
+    if launches != expected:
+        raise AssertionError(f"train launches {launches} != {expected}")
+    values = [ev0, ev1] + [h[k] for h in history for k in ("loss", "grad_norm", "lr")]
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"non-finite train metrics: {history}, evals {ev0}, {ev1}")
+    loss0 = history[0]["loss"]
+    if history[0]["lr"] != 0.0 or abs(loss0 - ev0) > BF16_ULP * abs(ev0) + 1e-5:
+        raise AssertionError(f"step 0 loss {loss0} (lr {history[0]['lr']}) != eval loss {ev0}")
+    if not ev1 < loss0:
+        raise AssertionError(f"loss did not fall: step 0 {loss0}, after {TRAIN_STEPS} steps {ev1}")
+    steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train: eval loss {ev0:.6f} ({eval_s:.3f} s) -> {ev1:.6f} after {TRAIN_STEPS} steps; "
+        f"step 0 loss {loss0:.6f} (lr 0) equals the eval loss within 2^-7")
+    log(f"train: {tokens_per_step} tokens/step (batch {TRAIN_BATCH} x seq {TRAIN_SEQ}): "
+        f"{steady:.3f} s/step (median of steps 1-{TRAIN_STEPS - 1}; step 0 {step_s[0]:.3f} s), "
+        f"{tokens_per_step / steady:.1f} tokens/s, peak device memory {peak:.2f} GiB on {smi}")
+    log(f"train: launches per step {per_step}; in all (2 evals + {TRAIN_STEPS} steps) {launches}")
+    return api, params, opt, batch, train_step, launches, dict(
+        s_per_step=steady, step_s=step_s, tokens_per_s=tokens_per_step / steady,
+        peak_gib=peak, eval_loss=[ev0, ev1], history=history)
+
+
+def phase_profile_train(torch, params, opt, batch, train_step):
+    """Device time of one more train step by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(params, opt, batch)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    groups, total, optimizer = {}, 0.0, None
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        if ev.key == "optimizer":  # the span, not a kernel: its kernels' time
+            optimizer = getattr(ev, "device_time_total", None) or ev.cuda_time_total
+            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += t
+        name = ev.key
+        low = name.lower()
+        if "flash_fwd" in name:
+            g = "B1 flash_attention forward (CUDA)"
+        elif "flash_bwd" in name:
+            g = "B1 flash_attention backward (CUDA)"
+        elif "rmsnorm_bwd" in name or "rmsnorm_dw" in name:
+            g = "B3a rmsnorm backward (Triton)"
+        elif "rmsnorm_kernel" in name:
+            g = "B3a rmsnorm forward (Triton)"
+        elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")):
+            g = "matmul (cuBLAS)"
+        elif any(x in low for x in ("elementwise", "reduce", "copy", "vectorized", "index",
+                                    "softmax", "scatter", "gather", "fill", "cat")):
+            g = "PyTorch elementwise/reduce/copy/index"
+        else:
+            g = "other: " + name[:60]
+        groups[g] = groups.get(g, 0.0) + t
+    log(f"profile train: one step, wall {wall:.3f} s, device busy {total / 1e6:.3f} s "
+        f"({100 * total / 1e6 / wall:.1f} %)")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1])[:14]:
+        log(f"profile train:   {t / 1e6:8.4f} s  {g}")
+    if optimizer is not None:
+        log(f"profile train:   of which clip + AdamW (all groups): {optimizer / 1e6:.4f} s")
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -409,31 +756,54 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build(torch)
     results = phase_kernels(torch, args.seed)
-    engine, cache, seq, launches = phase_serve(torch, args.seed, smi)
+    t0 = time.perf_counter()
+    engine, cache, seq, serve_launches = phase_serve(torch, args.seed, smi)
     if args.profile:
         phase_profile(torch, engine, cache, seq)
+    del engine, cache, seq
+    torch.cuda.empty_cache()
+    log(f"serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    api, params, opt, batch, train_step, train_launches, train = phase_train(torch, args.seed, smi)
+    if args.profile:
+        phase_profile_train(torch, params, opt, batch, train_step)
+    log(f"train: {time.perf_counter() - t0:.1f} s")
 
+    # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
         "decode_attention": ("cuda", DECODE_SRC,
-                             "src/repro/kernels/decode_attention/decode_attention.py:125"),
-        "rmsnorm": ("triton", RMSNORM_SRC, "src/repro/kernels/rmsnorm/rmsnorm.py:51"),
-        "rmsnorm_residual": ("triton", RMSNORM_SRC, "src/repro/kernels/rmsnorm/rmsnorm.py:62"),
+                             "src/repro/kernels/decode_attention/decode_attention.py:125", "serve"),
+        "rmsnorm": ("triton", RMSNORM_SRC, "src/repro/kernels/rmsnorm/rmsnorm.py:51", "serve"),
+        "rmsnorm_residual": ("triton", RMSNORM_SRC, "src/repro/kernels/rmsnorm/rmsnorm.py:62",
+                             "serve"),
+        "flash_attention": ("cuda", FLASH_SRC,
+                            "src/repro/kernels/flash_attention/flash_attention.py:129", "train"),
+        # the JAX package has no backward kernels: these replace its jnp custom
+        # VJP of attention and the autodiff of rms_norm
+        "flash_attention_bwd": ("cuda", FLASH_SRC, "src/repro/models/blocked_attention.py:137",
+                                "train"),
+        "rmsnorm_bwd": ("triton", RMSNORM_SRC, "src/repro/models/layers.py:31", "train"),
     }
+    by_path = {"serve": serve_launches, "train": train_launches}
     kernels = []
     for name, cases in results.items():
-        route, source, replaces = meta[name]
-        main_case = cases[0]  # the serving path's shape at batch 4
+        route, source, replaces, path = meta[name]
+        main_case = cases[0]  # the path's own shape
         err = max(c["max_abs_err"] for c in cases)
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err,
+            "launches": by_path[path][name], "max_abs_err": err,
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             # the same two numbers under the names PERF.md's table uses
             "kernel_ms": main_case["ms"], "max_err": err,
+            "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
             "card": smi, "cases": cases,
         })
+    if any(k["launches"] == 0 for k in kernels if k["name"] != "rmsnorm_residual"):
+        raise AssertionError("a kernel of a path was not launched on it")
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("a kernel time is not finite")
+    log("train: " + json.dumps(train))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

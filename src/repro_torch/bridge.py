@@ -9,19 +9,13 @@ checkpoint loader returns).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .checkpoint import decode_array, tensor_from_numpy, tensor_to_numpy, unflatten_tree
+from .checkpoint import decode_array, tensor_from_numpy, tensor_to_numpy, tree_map, unflatten_tree
 from .device import resolve_device
-
-
-def _map_tree(fn, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def params_from_numpy(
@@ -39,13 +33,22 @@ def params_from_numpy(
             t = t.to(dtype)
         return t.to(dev)
 
-    return _map_tree(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 def params_to_numpy(tree: Any) -> Dict:
     """The numpy tree of the port's parameters (bf16 leaves as ``V2`` bits,
     which is what the JAX package's checkpoint loader returns)."""
-    return _map_tree(tensor_to_numpy, tree)
+    return tree_map(tensor_to_numpy, tree)
+
+
+def _tree_from_files(files: Mapping[str, bytes], prefix: str, dev: torch.device) -> Dict:
+    items = {
+        rel[len(prefix) : -len(".npy")]: decode_array(data).to(dev)
+        for rel, data in files.items()
+        if rel.startswith(prefix) and rel.endswith(".npy")
+    }
+    return unflatten_tree(items)
 
 
 def params_from_files(
@@ -53,10 +56,15 @@ def params_from_files(
 ) -> Dict:
     """Model params from a checkpoint DU file-set (``params/<path>.npy``);
     the counterpart of ``repro.serving.engine.params_from_input``."""
+    return _tree_from_files(files, "params/", resolve_device(device))
+
+
+def train_state_from_files(
+    files: Mapping[str, bytes], device: Union[str, torch.device] = "cuda"
+) -> Tuple[Dict, Dict]:
+    """(params, opt_state) from a checkpoint DU file-set, read from its
+    ``params/`` and ``opt/`` leaves as ``repro.training.trainer``'s
+    ``_restore_from_input`` reads them; the counterpart of that function.
+    ``checkpoint_files(step, run, params, opt_state)`` writes both."""
     dev = resolve_device(device)
-    items = {
-        rel[len("params/") : -len(".npy")]: decode_array(data).to(dev)
-        for rel, data in files.items()
-        if rel.startswith("params/") and rel.endswith(".npy")
-    }
-    return unflatten_tree(items)
+    return _tree_from_files(files, "params/", dev), _tree_from_files(files, "opt/", dev)

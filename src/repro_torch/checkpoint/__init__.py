@@ -5,6 +5,7 @@ from .codec import (
     flatten_tree,
     tensor_from_numpy,
     tensor_to_numpy,
+    tree_map,
     unflatten_tree,
 )
 
@@ -15,5 +16,6 @@ __all__ = [
     "flatten_tree",
     "tensor_from_numpy",
     "tensor_to_numpy",
+    "tree_map",
     "unflatten_tree",
 ]

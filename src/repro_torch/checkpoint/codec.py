@@ -33,6 +33,13 @@ def flatten_tree(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix.rstrip("/"), tree)]
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` applied to every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def unflatten_tree(items: Dict[str, Any]) -> Any:
     root: Dict[str, Any] = {}
     for path, value in items.items():

@@ -9,6 +9,7 @@ Each kernel package ships three layers, as the JAX package's do:
   * ``ref.py``  -- the plain PyTorch version of the same function.
 
 Nothing here builds or imports a kernel when the package is imported.
-The wrappers are ``decode_attention.ops.decode_attention`` and
-``rmsnorm.ops.rmsnorm``.
+The wrappers are ``decode_attention.ops.decode_attention``,
+``flash_attention.ops.flash_attention`` (an autograd Function with a
+backward kernel) and ``rmsnorm.ops.rmsnorm`` (likewise).
 """

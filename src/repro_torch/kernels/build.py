@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -30,6 +31,7 @@ NVCC_FLAGS = [
 #: kernel name → its CUDA source, relative to this directory
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
 }
 
 _lock = threading.Lock()
@@ -72,6 +74,13 @@ def _build(name: str) -> Path:
         raise KernelBuildError(f"nvcc failed for {name} (rc {res.returncode}):\n{res.stdout}")
     os.replace(tmp, out)  # a finished library appears whole
     return out
+
+
+def build_all() -> None:
+    """Compile every source that is not built yet, one nvcc process per
+    source, all started together."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        list(pool.map(_build, SOURCES))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,9 +1,12 @@
-"""Wrapper of the RMSNorm kernel (``rmsnorm.py``, Triton).
+"""Wrapper of the RMSNorm kernels (``rmsnorm.py``, Triton).
 
-On CPU tensors it runs the plain version in :mod:`.ref`; on CUDA tensors it
-launches the kernel or raises.  ``rmsnorm.launches`` counts the launches of
-the plain variant and ``rmsnorm.residual_launches`` those of the residual
-variant (the plain version does not count).
+On CPU tensors it runs the plain versions in :mod:`.ref`; on CUDA tensors it
+launches the kernels or raises.  The plain variant is differentiable: its
+backward is ``rmsnorm_bwd_kernel`` + ``rmsnorm_dw_kernel`` on CUDA and
+``rmsnorm_bwd_ref`` on the CPU.  ``rmsnorm.launches`` counts the forward
+launches of the plain variant, ``rmsnorm.backward_launches`` its backward
+launches and ``rmsnorm.residual_launches`` those of the residual variant
+(the plain versions do not count).
 """
 
 from __future__ import annotations
@@ -12,15 +15,19 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .ref import rmsnorm_ref, rmsnorm_residual_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref, rmsnorm_residual_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 16384
+#: programs per SM of the backward's first pass (each owns a run of rows)
+BWD_PROGRAMS_PER_SM = 4
 
 
-def _launch(x, w, eps, residual):
-    from . import rmsnorm as kernel  # imports triton: CUDA path only
+def _block_d(d: int) -> int:
+    return 1 << max(d - 1, 1).bit_length()
 
+
+def _check(x, w, residual):
     d = x.shape[-1]
     dev = x.device
     tensors = [("w", w)] + ([("residual", residual)] if residual is not None else [])
@@ -37,12 +44,19 @@ def _launch(x, w, eps, residual):
         residual is not None and not residual.is_contiguous()
     ):
         raise ValueError("rmsnorm: x, w and residual must be contiguous")
+
+
+def _launch(x, w, eps, residual):
+    from . import rmsnorm as kernel  # imports triton: CUDA path only
+
+    _check(x, w, residual)
+    d = x.shape[-1]
     x2 = x.view(-1, d)
     rows = x2.shape[0]
     out = torch.empty_like(x2)
     res_out = torch.empty_like(x2) if residual is not None else out
     r2 = residual.view(-1, d) if residual is not None else x2
-    block_d = 1 << max(d - 1, 1).bit_length()
+    block_d = _block_d(d)
     if rows:
         kernel.rmsnorm_kernel[(rows,)](
             x2, r2, w, out, res_out,
@@ -61,6 +75,73 @@ def _launch(x, w, eps, residual):
     return out.view(x.shape), res_out.view(x.shape)
 
 
+def _launch_bwd(dy, x, w, eps):
+    from . import rmsnorm as kernel  # imports triton: CUDA path only
+
+    _check(x, w, None)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError("rmsnorm backward: dy must match x in shape, dtype and device")
+    d = x.shape[-1]
+    x2 = x.view(-1, d)
+    dy2 = dy.contiguous().view(-1, d)
+    rows = x2.shape[0]
+    dx = torch.empty_like(x2)
+    dw = torch.empty_like(w)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_prog = max(1, min(rows, BWD_PROGRAMS_PER_SM * sms))
+    per_prog = -(-rows // n_prog) if rows else 1
+    n_prog = -(-rows // per_prog) if rows else 1
+    part = torch.empty((n_prog, d), dtype=torch.float32, device=x.device)
+    block_d = _block_d(d)
+    if rows:
+        kernel.rmsnorm_bwd_kernel[(n_prog,)](
+            x2, w, dy2, dx, part,
+            x2.stride(0), dy2.stride(0), dx.stride(0),
+            rows, per_prog, d, eps,
+            BLOCK_D=block_d,
+            num_warps=min(max(block_d // 256, 1), 16),
+        )
+    else:
+        part.zero_()
+    block_c = 128
+    kernel.rmsnorm_dw_kernel[(-(-d // block_c),)](
+        part, dw, n_prog, d, BLOCK_P=32, BLOCK_C=block_c, num_warps=4,
+    )
+    rmsnorm.backward_launches += 1
+    return dx.view(x.shape), dw
+
+
+def rmsnorm_bwd(
+    dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, d(scale)) of the plain variant: the backward kernels on CUDA
+    tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(dy, x, w, eps)
+    if x.device.type == "cuda":
+        return _launch_bwd(dy, x, w, eps)
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+
+
+class RMSNorm(torch.autograd.Function):
+    """(1 + w)-scaled RMSNorm whose forward and backward are the Triton
+    kernels on CUDA and their plain versions on the CPU; saves (x, w)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return rmsnorm_ref(x, w, eps)
+        return _launch(x, w, eps, None)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(dy, x, w, ctx.eps)
+        return dx, dw, None
+
+
 def rmsnorm(
     x: torch.Tensor,  # [..., D]
     w: torch.Tensor,  # [D]
@@ -68,20 +149,25 @@ def rmsnorm(
     residual: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(1 + w)-scaled RMSNorm over the last dim; with ``residual`` returns
-    (norm(x + residual), x + residual)."""
+    (norm(x + residual), x + residual).  Only the plain variant is
+    differentiable on CUDA: the residual variant raises there when a gradient
+    is asked for (the model does not call it)."""
     d = x.shape[-1]
     if w.shape != (d,):
         raise ValueError(f"rmsnorm: w {tuple(w.shape)} for rows of {d}")
     if residual is not None and residual.shape != x.shape:
         raise ValueError(f"rmsnorm: residual {tuple(residual.shape)} vs x {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    if residual is None:
+        return RMSNorm.apply(x, w, eps)
     if x.device.type == "cpu":
-        if residual is None:
-            return rmsnorm_ref(x, w, eps)
         return rmsnorm_residual_ref(x, residual, w, eps)
-    if x.device.type == "cuda":
-        return _launch(x, w, eps, residual)
-    raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, residual)):
+        raise NotImplementedError("rmsnorm: the residual variant has no backward kernel")
+    return _launch(x, w, eps, residual)
 
 
 rmsnorm.launches = 0
+rmsnorm.backward_launches = 0
 rmsnorm.residual_launches = 0

@@ -1,8 +1,10 @@
 """Attention: the counterpart of ``repro.models.attention``.
 
-``gqa_attention`` is the reference semantics (the JAX package's ``impl="ref"``)
-and serves the multi-token forward.  A single-token decode step goes through
-the hand-written decode-attention kernel, which is given each cache slot's
+``gqa_attention`` is the reference semantics (the JAX package's ``impl="ref"``),
+kept for the tests.  The multi-token forward (positions ``arange(S)``, so the
+kernel's index masks are exact) goes through the hand-written flash-attention
+kernels, forward and backward.  A single-token decode step goes through the
+hand-written decode-attention kernel, which is given each cache slot's
 absolute position, so a sliding-window ring that has wrapped is masked by
 position and agrees with ``gqa_attention``.
 """
@@ -15,6 +17,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.flash_attention.ops import flash_attention
 from .layers import apply_rope, dense, dt, init_dense
 
 NEG_INF = -(2.0**30)
@@ -94,8 +97,8 @@ def attention_block(
     q = apply_rope(q, *rope)
     k = apply_rope(k, *rope)
 
-    if cache is None:
-        out = gqa_attention(q, k, v, positions, positions, causal=causal, window=window)
+    if cache is None:  # positions are arange(S): the kernel masks by index
+        out = flash_attention(q, k, v, causal=causal, window=window)
         return dense(out.reshape(b, s, cfg.n_heads * hd), params["o"]), None
 
     if cache_index is None or positions_k is None or s != 1:

@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.rmsnorm.ops import rmsnorm
@@ -135,3 +136,50 @@ def unembed(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
     else:
         logits = x @ params["lm_head"].to(x.dtype)
     return logits[..., : cfg.vocab_size]  # drop the padded columns
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor,  # [B, S, d] final-norm hidden states
+    params: Dict,
+    cfg: ModelConfig,
+    labels: torch.Tensor,  # [B, S]
+    mask: Optional[torch.Tensor] = None,  # [B, S]
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean next-token CE without materializing [B, S, V] logits.
+
+    Walks the sequence chunk by chunk; each chunk unembeds, reduces to its
+    NLL sum, and is recomputed in the backward pass (non-reentrant
+    ``torch.utils.checkpoint``, as ``jax.checkpoint(step)`` does in the JAX
+    package), so at most one chunk's [B, chunk, V] fp32 logits are live."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+
+    def step(xc, lc, mc):
+        logits = unembed(xc, params, cfg).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return ((logz - gold) * mc).sum()
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        xc, lc, mc = x[:, i : i + c], labels[:, i : i + c].long(), mask[:, i : i + c].float()
+        nll_sum = nll_sum + checkpoint(step, xc, lc, mc, use_reentrant=False)
+    return nll_sum / mask.float().sum().clamp_min(1.0)
+
+
+# -------------------------------------------------------------------- loss
+def softmax_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mean next-token CE in fp32; labels [B, S] of token ids."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -4,7 +4,10 @@
 Depth is ``n_groups`` repetitions of ``cfg.pattern`` plus an unrolled tail
 when depth % pattern != 0, with the per-group parameters stacked on a leading
 ``groups`` dimension exactly as in the JAX package (so checkpoints cross over
-unchanged).  Where JAX scans over the stack, the port loops over its slices.
+unchanged).  Where JAX scans over the stack, the port loops over its slices;
+with ``remat`` each group is a non-reentrant ``torch.utils.checkpoint``
+(only its input is kept; the group is recomputed in the backward pass), as
+``jax.checkpoint(body, nothing_saveable)`` does.
 
 The other families (mamba, moe, shared_attn blocks) are not ported yet and
 raise ``NotImplementedError``.
@@ -15,10 +18,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attention_block, init_attention, ring_positions
 from .layers import (
+    chunked_cross_entropy,
     dt,
     embed,
     init_embedding,
@@ -175,15 +180,23 @@ def _apply_stack(
     cfg: ModelConfig,
     cache: Optional[Dict] = None,
     cache_index: Optional[int] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """All blocks: the stacked groups in order, then the tail."""
+    """All blocks: the stacked groups in order (each checkpointed with
+    ``remat``), then the tail."""
     tables = _tables(x, positions, cfg, cache, cache_index)
     pat = cfg.pattern
     g = cfg.n_layers // len(pat)
     for i in range(g):
+        gp = _group_slice(params["groups"], i)
+        if remat:
+            x = checkpoint(
+                _apply_pattern, x, gp, pat, positions, cfg, tables, use_reentrant=False
+            )
+            continue
         x = _apply_pattern(
             x,
-            _group_slice(params["groups"], i),
+            gp,
             pat,
             positions,
             cfg,
@@ -214,25 +227,58 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,  # [B, P, d] (vlm stub)
     last_only: bool = False,
     return_hidden: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Teacher-forced forward; returns logits [B, S_total, V].
 
     ``last_only``: unembed only the final position.  ``return_hidden``: skip
-    unembedding and return the final-norm hidden states.  (The JAX function
-    also returns an MoE aux loss, which is always 0 for these families.)"""
+    unembedding and return the final-norm hidden states.  ``remat``:
+    checkpoint each stacked group.  (The JAX function also returns an MoE aux
+    loss, which is always 0 for these families.)"""
     check_supported(cfg)
     x = embed(tokens, params["embed"], cfg)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    x = _apply_stack(params, x, positions, cfg)
+    x = _apply_stack(params, x, positions, cfg, remat=remat)
     if last_only:
         x = x[:, -1:, :].contiguous()
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x
     return unembed(x, params["embed"], cfg)
+
+
+def loss_fn(
+    params: Dict,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    remat: bool = True,
+    ce_chunk: int = 512,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE (+ MoE aux, 0 for these families); batch: tokens/labels
+    [B, S] (+ optional prefix_embeds, loss_mask).  The CE runs chunk by
+    chunk over the sequence, so [B, S, V] logits are never materialized.
+    Returns (loss, {"ce", "aux", "loss"})."""
+    hidden = forward(
+        params,
+        batch["tokens"],
+        cfg,
+        prefix_embeds=batch.get("prefix_embeds"),
+        return_hidden=True,
+        remat=remat,
+    )
+    labels = batch["labels"]
+    if hidden.shape[1] != labels.shape[1]:  # vlm: loss only on text positions
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1] :]
+    ce = chunked_cross_entropy(
+        hidden, params["embed"], cfg, labels, batch.get("loss_mask"), ce_chunk
+    )
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    loss = ce + coef * aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 # ----------------------------------------------------------------- decode

@@ -59,20 +59,33 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     import chip_smoke as cs
     from repro_torch.configs import base, registry
     from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
 
     tiny = dataclasses.replace(
         base.reduced(registry.get_config("gemma3-1b")), name="tiny", n_layers=8,
         sliding_window=8, param_dtype="bfloat16", compute_dtype="bfloat16",
     )
+    tiny_train = dataclasses.replace(
+        base.reduced(registry.get_config("h2o-danube-1.8b")), name="tiny-train", n_layers=3,
+        sliding_window=16, param_dtype="bfloat16", compute_dtype="bfloat16",
+    )
     monkeypatch.setitem(registry.ARCHS, "tiny", tiny)
+    monkeypatch.setitem(registry.ARCHS, "tiny-train", tiny_train)
     for name, value in dict(
         DEVICE="cpu", MODEL="tiny", PROMPT_LEN=10, NEW_TOKENS=4, MAX_LEN=16,
         BATCH=2, CHECK_POSITIONS=(0, 7, 8, 13), Timer=_HostTimer,
+        TRAIN_MODEL="tiny-train", TRAIN_BATCH=2, TRAIN_SEQ=40, TRAIN_LR=1e-2,
+        FLASH_CASES=[("h2o-danube train", 2, 40, 8, 2, 16, True, 16),
+                     ("gemma3-1b forward, global", 2, 24, 4, 1, 16, True, None)],
+        FLASH_FP32_CASES=[("fp32 non-causal", 1, 20, 4, 1, 16, False, None)],
+        RMSNORM_BWD_CASES=[(40, 64), (4, 64)],
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
         phase_build=lambda torch: None,
     ).items():
         monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
 
     # on the CPU the wrappers run their plain versions, which do not count:
     # count those calls instead, so the launch assertions are exercised (the
@@ -88,6 +101,12 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     monkeypatch.setattr(norm_ops, "rmsnorm_ref", counting(norm_ops.rmsnorm_ref, norm_ops.rmsnorm))
     monkeypatch.setattr(norm_ops, "rmsnorm_residual_ref", counting(
         norm_ops.rmsnorm_residual_ref, norm_ops.rmsnorm, "residual_launches"))
+    monkeypatch.setattr(norm_ops, "rmsnorm_bwd_ref", counting(
+        norm_ops.rmsnorm_bwd_ref, norm_ops.rmsnorm, "backward_launches"))
+    monkeypatch.setattr(fa_ops, "flash_attention_ref", counting(
+        fa_ops.flash_attention_ref, fa_ops.flash_attention))
+    monkeypatch.setattr(fa_ops, "flash_attention_bwd_ref", counting(
+        fa_ops.flash_attention_bwd_ref, fa_ops.flash_attention, "backward_launches"))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -97,13 +116,21 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
     kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
-    assert sorted(kernels) == ["decode_attention", "rmsnorm", "rmsnorm_residual"]
+    assert sorted(kernels) == ["decode_attention", "flash_attention", "flash_attention_bwd",
+                               "rmsnorm", "rmsnorm_bwd", "rmsnorm_residual"]
     steps = 10 + 4 - 1
     assert kernels["decode_attention"]["launches"] == 8 * steps
     assert kernels["rmsnorm"]["launches"] == 17 * steps
     assert kernels["rmsnorm_residual"]["launches"] == 0
+    # train: 2 evals (3 attention, 7 norms each) and 4 remat steps (3 + 3
+    # attention forwards, 3 backwards; 7 + 6 norm forwards, 7 backwards)
+    assert kernels["flash_attention"]["launches"] == 2 * 3 + 4 * 6
+    assert kernels["flash_attention_bwd"]["launches"] == 4 * 3
+    assert kernels["rmsnorm_bwd"]["launches"] == 4 * 7
+    assert kernels["rmsnorm"]["launches_by_path"]["train"] == 2 * 7 + 4 * 13
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err"}
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",
+            "launches_by_path"}
     for k in kernels.values():
         assert keys <= set(k)
         assert (k["kernel_ms"], k["max_err"]) == (k["ms"], k["max_abs_err"])

@@ -7,7 +7,10 @@ CUDA and run on the card with
 
 Tolerances: fp32 outputs within 1e-4 relative + 1e-5 absolute; bf16 outputs
 within one bf16 ulp (2^-7 relative) + 1e-5, since both sides accumulate in
-fp32 and round once."""
+fp32 and round once.  Gradients (flash attention dq/dk/dv, rmsnorm dx and
+d(scale)) are sums over many rows whose order differs between the kernel
+and the plain version, so their absolute term is 1e-5 times the largest
+|value| of the tensor (at least 1e-5) instead."""
 
 import pytest
 
@@ -103,3 +106,127 @@ def test_rmsnorm_kernel_rejects_strided_rows(cuda):
     x = torch.zeros(4, 2, 64, device=cuda)[:, 0]
     with pytest.raises(ValueError, match="contiguous"):
         ops.rmsnorm(x, torch.zeros(64, device=cuda))
+
+
+def _close_grad(out, ref, dtype):
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+    atol = 1e-5 * max(1.0, ref.float().abs().max().item())
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * ref.float().abs()).all()), diff.max().item()
+
+
+FLASH_MASKS = [(True, None), (True, 24), (False, None), (False, 24)]
+
+
+def _flash_inputs(cuda, d, g, dtype, seed, b=2, s=77, hkv=2):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    # q, k, v sliced out of one fused projection, as strided views
+    qkv = torch.randn(b, s, hkv * (g + 2), d, generator=gen, device=cuda).to(dtype)
+    q, k, v = qkv.split([hkv * g, hkv, hkv], dim=2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, d, g, dtype):
+    """Forward (out, lse) and backward (dq, dk, dv) at S 77 (a ragged last
+    tile), strided q/k/v, every mask."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    q, k, v = _flash_inputs(cuda, d, g, dtype, seed=d + g)
+    dout = torch.randn(q.shape, device=cuda).to(dtype)
+    for causal, window in FLASH_MASKS:
+        before = (ops.flash_attention.launches, ops.flash_attention.backward_launches)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = ops.flash_attention(qg, kg, vg, causal=causal, window=window)
+        dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), dout)
+        ref, lse_ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        _, lse = ops.flash_attention_fwd(q, k, v, causal, window)
+        grads_ref = flash_attention_bwd_ref(q, k, v, out.detach(), lse, dout,
+                                            causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert (ops.flash_attention.launches, ops.flash_attention.backward_launches) == (
+            before[0] + 2, before[1] + 1)
+        assert out.dtype == dtype and out.shape == q.shape
+        _close(out, ref, dtype)
+        _close(lse, lse_ref, torch.float32)
+        for got, want in zip((dq, dk, dv), grads_ref):
+            assert got.dtype == dtype and got.shape == want.shape
+            _close_grad(got, want, dtype)
+
+
+def test_flash_kernel_rejects_what_it_has_no_instance_for(cuda):
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.zeros(1, 8, 3, 48, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 1, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q[..., :32].half(), k[..., :32].half(), k[..., :32].half())
+
+
+@pytest.mark.parametrize("rows,d", [(1, 64), (300, 1152), (4100, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, dtype):
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=gen, device=cuda) * 3).to(dtype)
+    w = (torch.randn(d, generator=gen, device=cuda) * 0.1).to(dtype)
+    dy = torch.randn(rows, d, generator=gen, device=cuda).to(dtype)
+    before = ops.rmsnorm.backward_launches
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    dx, dw = torch.autograd.grad(ops.rmsnorm(xg, wg), (xg, wg), dy)
+    dx_ref, dw_ref = rmsnorm_bwd_ref(dy, x, w)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm.backward_launches == before + 1
+    assert dx.dtype == dtype and dw.dtype == dtype
+    _close_grad(dx, dx_ref, dtype)
+    _close_grad(dw, dw_ref, dtype)
+
+
+def test_train_step_on_card_runs_no_plain_version(cuda, monkeypatch):
+    """A smoke-size h2o-danube train step and eval on the card with every
+    plain version made to raise: attention and norms, forward and backward,
+    go through the kernels, and the launch counters say how often."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.training import make_eval_step, make_train_step
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((fa_ops, "flash_attention_ref"), (fa_ops, "flash_attention_bwd_ref"),
+                      (norm_ops, "rmsnorm_ref"), (norm_ops, "rmsnorm_bwd_ref"),
+                      (norm_ops, "rmsnorm_residual_ref")):
+        monkeypatch.setattr(mod, name, boom)
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b-smoke"), head_dim=64, n_layers=3,
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = api.init(seed=0)
+    opt = init_adamw(params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 80), device=cuda)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    fa_ops.flash_attention.launches = fa_ops.flash_attention.backward_launches = 0
+    norm_ops.rmsnorm.launches = norm_ops.rmsnorm.backward_launches = 0
+    ev = make_eval_step(api)(params, batch)
+    params, opt, m = make_train_step(api, warmup_steps=1)(params, opt, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert abs(m["loss"].item() - ev["loss"].item()) < 1e-2 * max(1.0, ev["loss"].item())
+    n = cfg.n_layers
+    # eval: n forward; step: n forward, n recomputed, n backward
+    assert fa_ops.flash_attention.launches == 3 * n
+    assert fa_ops.flash_attention.backward_launches == n
+    # eval: 2n+1; step: 2n+1 forward, 2n recomputed, 2n+1 backward
+    assert norm_ops.rmsnorm.launches == 3 * (2 * n + 1) - 1
+    assert norm_ops.rmsnorm.backward_launches == 2 * n + 1
