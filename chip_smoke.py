@@ -25,10 +25,19 @@ Phases, each of which must pass (any failure exits non-zero):
                 tokens, one more eval.  Launch counters prove that every
                 attention and every norm, forward, recompute and backward, went
                 through the kernels; the loss must fall;
-  6. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+  6. ssm     -- mamba2-370m and zamba2-1.2b at full width (random weights from
+                --seed) served from checkpoint DU files by DecodeEngine: 4
+                prompts of 489 tokens plus 24 new tokens (512 fed tokens, two
+                SSD chunks of 256).  Decode logits are held against the
+                teacher-forced forward, which runs the SSD chunk-scan kernel in
+                every mamba layer, at positions either side of the chunk
+                boundary; layer 0's final SSM state against the engine's; then
+                a 32768-token prefill of mamba2-370m (``forward(last_only=
+                True)``).  Launch counters prove every path's kernels ran;
+  7. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
-``--profile`` adds torch.profiler breakdowns of eight decode steps and of one
-train step.
+``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
+served model), of one train step and of one mamba2-370m prefill.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -49,6 +58,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_ULP = 2.0**-7  # one bf16 ulp relative to the value (8 significant bits)
 
@@ -63,6 +73,16 @@ TRAIN_MODEL = "h2o-danube-1.8b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
 
+SSM_MODELS = ("mamba2-370m", "zamba2-1.2b")
+SSM_PROMPT_LEN, SSM_NEW_TOKENS, SSM_MAX_LEN, SSM_BATCH = 489, 24, 512, 4
+SSM_CHECK_POSITIONS = (0, 255, 256, 511)  # position 0 first; either side of the chunk boundary
+STATE_TOL = 2e-2  # max |engine state - forward state| over max(1, max |forward state|)
+# the bf16 engine against the bf16 forward once a state is carried (positions
+# past 0): about twice the largest reading on the H100 (0.152 mamba2-370m,
+# 0.180 zamba2-1.2b; means 1.44e-2 and 9.78e-3), so a gross fault still fails
+SSM_BF16_LOGIT_TOL, SSM_BF16_LOGIT_MEAN_TOL = 0.3, 3e-2
+PREFILL_MODEL, PREFILL_LEN = "mamba2-370m", 32768  # prefill_32k's length at batch 1
+
 # phase 3 shapes.  Flash attention: (label, B, S, Hq, Hkv, D, causal, window);
 # the first is the training path's, the others gemma3-1b's teacher-forced
 # forward of phase 4 (5 sliding-window layers : 1 global)
@@ -70,18 +90,55 @@ FLASH_CASES = [
     ("h2o-danube train", 2, 8192, 32, 8, 80, True, 4096),
     ("gemma3-1b forward, window", 4, 544, 4, 1, 256, True, 512),
     ("gemma3-1b forward, global", 4, 544, 4, 1, 256, True, None),
+    ("zamba2-1.2b forward, shared attention", 4, 512, 32, 32, 64, True, None),
 ]
 FLASH_FP32_CASES = [
     ("fp32 ragged", 2, 300, 8, 2, 80, True, 128),
     ("fp32 non-causal", 1, 200, 4, 1, 256, False, None),
 ]
+# RMSNorm forward: (rows, D).  gemma3-1b's width (4 rows: a decode step at
+# batch 4), then phase 6's: mamba2-370m's d_model 1024 and gate norm 2048,
+# zamba2-1.2b's d_model 2048 and gate norm 4096, at a decode step (4 rows), a
+# forward of 4 x 511 tokens (2044) and the mamba2 prefill (32768).  Triton
+# builds one program for each width.  The residual variant runs on no path:
+# it is held at gemma3-1b's width only
+RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
+                 (4, 1024), (2044, 1024), (32768, 1024),
+                 (4, 2048), (2044, 2048), (32768, 2048),
+                 (4, 4096), (2044, 4096)]
+RMSNORM_RESIDUAL_CASES = [(4, 1152), (8, 1152), (4096, 1152)]
 # RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
 # step's, 2176 x 1152 gemma3-1b's forward
 RMSNORM_BWD_CASES = [(16384, 2560), (4, 2560), (2176, 1152)]
+# decode attention: (label, B, slots, Hq, Hkv, D, window, position); the first
+# is gemma3-1b's SWA ring wrapped at the last position of the serve phase
+DECODE_CASES = [
+    ("gemma3-1b ring", 4, 512, 4, 1, 256, 512, 543),
+    ("gemma3-1b ring", 8, 512, 4, 1, 256, 512, 543),
+    ("gemma3-1b global", 4, 1024, 4, 1, 256, None, 543),
+    ("gemma3-1b global", 8, 1024, 4, 1, 256, None, 543),
+    ("zamba2-1.2b shared attention", 4, 512, 32, 32, 64, None, 511),
+]
+# SSD chunk scan: (label, B, S, H, P, N, G, dtype, initial state); the timed
+# cases are the mamba2 prefill and the phase 6 forwards, the edge cases are
+# only held against the plain version
+SSD_CASES = [
+    ("mamba2-370m prefill", 1, 32768, 32, 64, 128, 1, "float32", False),
+    ("mamba2-370m forward", 4, 512, 32, 64, 128, 1, "float32", False),
+    ("zamba2-1.2b forward", 4, 512, 64, 64, 64, 1, "float32", False),
+]
+SSD_EDGE_CASES = [
+    ("S < chunk", 2, 100, 8, 64, 128, 1, "float32", False),
+    ("G 2", 2, 512, 8, 64, 64, 2, "float32", False),
+    ("initial state", 2, 512, 8, 64, 128, 1, "float32", True),
+    ("bf16 inputs", 2, 512, 8, 64, 128, 1, "bfloat16", False),
+]
+SSD_CHUNK = 256
 
 DECODE_SRC = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 RMSNORM_SRC = "src/repro_torch/kernels/rmsnorm/rmsnorm.py"
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 
 
 def sync(torch) -> None:
@@ -186,6 +243,7 @@ def counters():
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     return [
         ("decode_attention", dec_ops.decode_attention, "launches"),
@@ -194,6 +252,7 @@ def counters():
         ("flash_attention", fa_ops.flash_attention, "launches"),
         ("flash_attention_bwd", fa_ops.flash_attention, "backward_launches"),
         ("rmsnorm_bwd", norm_ops.rmsnorm, "backward_launches"),
+        ("ssd_scan", ssd_ops.ssd, "launches"),
     ]
 
 
@@ -213,12 +272,8 @@ def decode_cases(torch, timer, gen):
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    hq, hkv, d = 4, 1, 256  # gemma3-1b
     cases = []
-    # (batch, slots, window, position): the SWA ring wrapped at the last
-    # position of the serve phase, and the global cache of max_len slots
-    for b, sk, window, pos in ((4, 512, 512, 543), (8, 512, 512, 543),
-                               (4, 1024, None, 543), (8, 1024, None, 543)):
+    for label, b, sk, hq, hkv, d, window, pos in DECODE_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             def rnd(*shape):
                 return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
@@ -231,10 +286,10 @@ def decode_cases(torch, timer, gen):
             ref = decode_attention_ref(q[:, 0], k, v, pos_q, pos_k, window=window)[:, None]
             sync(torch)
             rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
-            err = check_close(f"decode_attention B={b} Sk={sk} {dtype}", out, ref, rtol, 1e-5)
+            name = f"decode_attention {label} B={b} Sk={sk} {hq}/{hkv}x{d}"
+            err = check_close(f"{name} {dtype}", out, ref, rtol, 1e-5)
             if dtype != torch.bfloat16:
-                log(f"kernels: decode_attention fp32 B={b} Sk={sk} max|err| {err:.2e} "
-                    f"(rtol 1e-4, atol 1e-5)")
+                log(f"kernels: {name} fp32 max|err| {err:.2e} (rtol 1e-4, atol 1e-5)")
                 continue
             dpos = pos_q[:, None] - pos_k
             valid = (pos_k >= 0) & (dpos >= 0)
@@ -252,10 +307,11 @@ def decode_cases(torch, timer, gen):
                        + sk * 4 + b * 4)  # slot positions (one row, broadcast), pos
             flops = 4 * n_valid * hq * d
             bound, by = bound_ms(n_bytes, flops, BF16_FLOPS)
-            cases.append(dict(B=b, Sk=sk, window=window, pos=pos, dtype="bfloat16",
+            cases.append(dict(case=label, B=b, Sk=sk, Hq=hq, Hkv=hkv, D=d, window=window,
+                              pos=pos, dtype="bfloat16",
                               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                               bound_by=by, max_abs_err=err))
-            log(f"kernels: decode_attention bf16 B={b} Sk={sk} window={window} pos={pos}: "
+            log(f"kernels: {name} bf16 window={window} pos={pos}: "
                 f"{ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound {bound:.4f} by {by}), "
                 f"max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
     return cases
@@ -267,15 +323,15 @@ def rmsnorm_cases(torch, timer, gen, residual: bool):
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
 
-    d, eps = 1152, 1e-6
+    eps = 1e-6
     cases = []
-    for rows in (4, 8, 4096):  # 4: a decode step at batch 4
+    for rows, d in RMSNORM_RESIDUAL_CASES if residual else RMSNORM_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(rows, d, generator=gen, device=DEVICE) * 3).to(dtype)
             r = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
             w = (torch.randn(d, generator=gen, device=DEVICE) * 0.1).to(dtype)
             rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-5
-            name = f"rmsnorm{'_residual' if residual else ''} rows={rows} {dtype}"
+            name = f"rmsnorm{'_residual' if residual else ''} rows={rows} D={d} {dtype}"
             if residual:
                 out, s = rmsnorm(x, w, eps, residual=r)
                 ref, ref_s = rmsnorm_residual_ref(x, r, w, eps)
@@ -439,6 +495,77 @@ def rmsnorm_bwd_cases(torch, timer, gen):
     return cases
 
 
+def ssd_cases(torch, timer, gen):
+    """B4 against its plain version at the paths' shapes and the edge cases;
+    returns the timed cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    cases = []
+    timed = {c[0] for c in SSD_CASES}
+    for label, b, s, h, p, n, g, dtype_name, init in SSD_CASES + SSD_EDGE_CASES:
+        dtype = getattr(torch, dtype_name)
+
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=DEVICE) * scale
+
+        x = rnd(b, s, h, p).to(dtype)
+        # dA < 0 as the model makes it; cum reaches about -200 over a chunk,
+        # so exp(cum) underflows to 0 and exp(cum_i - cum_j) above the
+        # diagonal would overflow if it were not selected away
+        dA = -F.softplus(rnd(b, s, h))
+        B_, C_ = rnd(b, s, g, n, scale=0.5).to(dtype), rnd(b, s, g, n, scale=0.5).to(dtype)
+        state = rnd(b, h, p, n) if init else None
+        q = min(SSD_CHUNK, s)
+        name = f"ssd_scan {label} [{b},{s},{h},{p}] N={n} G={g} {dtype_name}"
+        y, final = ops.ssd(x, dA, B_, C_, SSD_CHUNK, state)
+        ref_y, ref_final = ssd_ref(x, dA, B_, C_, q, state)
+        sync(torch)
+        # y sums up to Q terms and the state Q per chunk, in another order
+        # than the plain version: absolute term 1e-5 x the largest value
+        rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
+        err = max(
+            check_close(name, y, ref_y, rtol, 1e-5 * max(1.0, ref_y.float().abs().max().item())),
+            check_close(name + " state", final, ref_final, 1e-4,
+                        1e-5 * max(1.0, ref_final.abs().max().item())))
+        del y, final, ref_y, ref_final
+        if label not in timed:
+            log(f"kernels: {name} max|err| {err:.2e} (rtol {rtol:.3g}, atol 1e-5 x max|ref|)")
+            continue
+        ms = timer(lambda: ops.ssd(x, dA, B_, C_, SSD_CHUNK, state))
+        plain = timer(lambda: ssd_ref(x, dA, B_, C_, q, state))
+        # the work the function needs: C B^T once per (b, chunk, group) and
+        # (L o S) X per (b, h, chunk), both on the lower triangle only (Q(Q+1)/2
+        # pairs); per (b, h, chunk) the state term C state^T (none in the first
+        # chunk without an initial state) and the state update, 2QPN each
+        chunks, tri = s // q, q * (q + 1) // 2
+        flops = (b * chunks * g * 2 * n * tri + b * h * chunks * 2 * p * tri
+                 + b * h * (2 * chunks - (0 if init else 1)) * 2 * q * p * n)
+        # the TPU kernel's work, for comparison: full Q x Q squares, C B^T per head
+        tpu_flops = b * h * chunks * (2 * q * q * n + 2 * q * q * p + 4 * q * p * n)
+        item = x.element_size()
+        n_bytes = (2 * b * s * h * p * item  # x in, y out
+                   + b * s * h * 4  # dA
+                   + 2 * b * s * g * n * item  # B, C in their group layout
+                   + b * h * p * n * 4 * (2 if init else 1))  # final (and initial) state
+        bound, by = bound_ms(n_bytes, flops, FP32_FLOPS)
+        tf32 = max(n_bytes / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3
+        cases.append(dict(case=label, B=b, S=s, H=h, P=p, N=n, G=g, dtype=dtype_name,
+                          flops=flops, tpu_flops=tpu_flops, bytes=n_bytes, ms=ms, plain_ms=plain, library_ms=None,
+                          bound_ms=bound, bound_by=by, tf32_bound_ms=tf32, max_abs_err=err))
+        log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, no library call, bound "
+            f"{bound:.4f} by {by} at the fp32 peak, {tf32:.4f} at the TF32 peak; "
+            f"{flops / 1e9:.4g} GFLOP ({tpu_flops / 1e9:.4g} as the TPU kernel counts), "
+            f"{n_bytes / 1e6:.4g} MB), max|err| {err:.2e} "
+            f"(rtol {rtol:.3g}, atol 1e-5 x max|ref|)")
+        del x, dA, B_, C_, state
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernels(torch, seed):
     timer = Timer(torch)
     gen = torch.Generator(device=DEVICE)
@@ -452,6 +579,7 @@ def phase_kernels(torch, seed):
         "flash_attention": fwd,
         "flash_attention_bwd": bwd,
         "rmsnorm_bwd": rmsnorm_bwd_cases(torch, timer, gen),
+        "ssd_scan": ssd_cases(torch, timer, gen),
     }
     del timer
     if DEVICE == "cuda":
@@ -502,7 +630,7 @@ def phase_serve(torch, seed, smi):
     # residual variant is held against its plain version in phase 3 only
     expected = {"decode_attention": n_attn * steps, "rmsnorm": n_norm * steps,
                 "rmsnorm_residual": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-                "rmsnorm_bwd": 0}
+                "rmsnorm_bwd": 0, "ssd_scan": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected} ({steps} steps)")
     if new.shape != (BATCH, NEW_TOKENS) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
@@ -603,7 +731,7 @@ def train_launch_schedule(cfg) -> dict:
     remat_layers = (n // len(cfg.pattern)) * len(cfg.pattern)
     return {"flash_attention": n + remat_layers, "flash_attention_bwd": n,
             "rmsnorm": (2 * n + 1) + 2 * remat_layers, "rmsnorm_bwd": 2 * n + 1,
-            "decode_attention": 0, "rmsnorm_residual": 0}
+            "decode_attention": 0, "rmsnorm_residual": 0, "ssd_scan": 0}
 
 
 def phase_train(torch, seed, smi):
@@ -710,7 +838,9 @@ def phase_profile_train(torch, params, opt, batch, train_step):
         if t is None:
             t = ev.self_cuda_time_total
         if ev.key == "optimizer":  # the span, not a kernel: its kernels' time
-            optimizer = getattr(ev, "device_time_total", None) or ev.cuda_time_total
+            optimizer = getattr(ev, "device_time_total", None)
+            if optimizer is None:
+                optimizer = ev.cuda_time_total
             continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -741,6 +871,216 @@ def phase_profile_train(torch, params, opt, batch, train_step):
         log(f"profile train:   of which clip + AdamW (all groups): {optimizer / 1e6:.4f} s")
 
 
+# ------------------------------------------------------------ phase 6
+def ssm_launches(cfg, path: str) -> dict:
+    """Launches that one decode step (``path="step"``) or one teacher-forced
+    forward (``"forward"``) implies: every layer's norms (two each) and the
+    final norm; a decode step's attention layers run B2, a forward's run B1
+    and its mamba layers B4."""
+    kinds = cfg.layer_kinds()
+    n_mamba = kinds.count("mamba")
+    out = {name: 0 for name, _, _ in counters()}
+    out["rmsnorm"] = 2 * len(kinds) + 1
+    if path == "step":
+        out["decode_attention"] = len(kinds) - n_mamba
+    else:
+        out.update(flash_attention=len(kinds) - n_mamba, ssd_scan=n_mamba)
+    return out
+
+
+def check_launches(before: dict, expected: dict, what: str) -> None:
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    if got != expected:
+        raise AssertionError(f"{what}: launches {got} != {expected}")
+
+
+def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = False):
+    """Serve one SSM-family model from checkpoint files, hold its decode
+    against its forward, and (with ``prefill_len``) time a prefill; with
+    ``profile``, break eight more decode steps and one more prefill down by
+    kernel group.
+
+    In bf16 a deep SSM with random weights amplifies the one-ulp roundings in
+    which decode and forward differ (GEMV against GEMM, the recurrence
+    against the chunked form) once a state is carried, past what
+    LOGIT_TOL allows; in fp32 the two agree closely.  So the bf16 engine is
+    held to the forward to LOGIT_TOL at position 0 (no carried state), to
+    SSM_BF16_LOGIT_TOL / SSM_BF16_LOGIT_MEAN_TOL at the other positions and
+    on its layer-0 SSM state, and the same weights in fp32 are held to
+    LOGIT_TOL / LOGIT_MEAN_TOL at every check position."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint_files, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import embed, rms_norm, unembed
+    from repro_torch.models.mamba2 import mamba_block
+    from repro_torch.models.transformer import _group_slice
+    from repro_torch.serving import DecodeEngine
+
+    cfg = get_config(model)
+    api = build_model(cfg, device=DEVICE)
+    recorded = {}
+
+    def recording_step(params, cache, tokens, pos_index):
+        """The model's decode step, keeping the logits at the check positions."""
+        logits, cache = api.decode_step(params, cache, tokens, pos_index)
+        if pos_index in SSM_CHECK_POSITIONS:
+            recorded[pos_index] = logits[:, 0].float()
+        return logits, cache
+
+    t0 = time.perf_counter()
+    files = checkpoint_files(0, f"{model}-chip-smoke", api.init(seed=seed))
+    engine = DecodeEngine.from_files(dataclasses.replace(api, decode_step=recording_step), files,
+                                     batch=SSM_BATCH, max_len=SSM_MAX_LEN)
+    n_bytes = sum(len(b) for b in files.values())
+    del files
+    sync(torch)
+    kinds = cfg.layer_kinds()
+    log(f"ssm: {cfg.name} ({kinds.count('mamba')} mamba + {len(kinds) - kinds.count('mamba')} "
+        f"attention layers, d_model {cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} SSD heads of "
+        f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, vocab {cfg.vocab_size}) through "
+        f"{n_bytes / 2**30:.2f} GiB of checkpoint files in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT_LEN)))
+    steps = SSM_PROMPT_LEN + SSM_NEW_TOKENS - 1
+    before = read_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    new = engine.generate(prompts, SSM_NEW_TOKENS)
+    sync(torch)
+    elapsed = time.perf_counter() - t0
+    per_step = ssm_launches(cfg, "step")
+    check_launches(before, {k: v * steps for k, v in per_step.items()}, f"{model} decode")
+    if new.shape != (SSM_BATCH, SSM_NEW_TOKENS) or not bool(
+            ((new >= 0) & (new < cfg.vocab_size)).all()):
+        raise AssertionError(f"bad generated tokens {new.shape}")
+    out = dict(decode_ms_per_step=elapsed / steps * 1e3, decode_tokens_per_s=SSM_BATCH * steps / elapsed)
+    log(f"ssm: {model}: {steps} decode steps at batch {SSM_BATCH}: {elapsed:.3f} s, "
+        f"{out['decode_ms_per_step']:.3f} ms/step, {out['decode_tokens_per_s']:.1f} tokens/s on "
+        f"{smi}; launches per step {per_step}")
+
+    def logit_errors(dec, ref):
+        scale = max(1.0, ref.abs().max().item())
+        err = (torch.stack([dec[p] for p in SSM_CHECK_POSITIONS], dim=1) - ref).abs()
+        if not bool(err.isfinite().all()):
+            raise AssertionError(f"{model}: non-finite decode or forward logits")
+        return {p: err[:, j].max().item() / scale for j, p in enumerate(SSM_CHECK_POSITIONS)}, (
+            err.mean().item() / scale)
+
+    fed = torch.cat([prompts.to(new.device), new], dim=1)[:, :steps]  # the tokens decoded
+    with torch.no_grad():
+        before = read_counts()
+        hidden = api.forward(engine.params, fed, return_hidden=True)
+        check_launches(before, ssm_launches(cfg, "forward"), f"{model} forward")
+        ref = unembed(hidden[:, list(SSM_CHECK_POSITIONS)], engine.params["embed"], cfg).float()
+        del hidden
+        bf16_pos, bf16_mean = logit_errors(recorded, ref)
+        # layer 0's chunked final state against the engine's after the same tokens
+        bp = _group_slice(engine.params["groups"]["pos0"], 0)
+        h0 = rms_norm(embed(fed, engine.params["embed"], cfg), bp["ln1"], cfg.norm_eps)
+        _, state = mamba_block(bp["mamba"], h0, cfg)
+        eng_state = engine.cache["groups"]["pos0"]["ssm"][0]
+        state_err = (state - eng_state).abs().max().item() / max(1.0, state.abs().max().item())
+        del ref, state, eng_state, h0
+
+        # the same weights in fp32: decode against forward at every position
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        api32 = build_model(cfg32, device=DEVICE)
+        params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, engine.params)
+        cache = api32.init_cache(SSM_BATCH, SSM_MAX_LEN)
+        dec32 = {}
+        for i in range(steps):
+            lg, cache = api32.decode_step(params32, cache, fed[:, i : i + 1], i)
+            if i in SSM_CHECK_POSITIONS:
+                dec32[i] = lg[:, 0].float()
+        del cache
+        hidden = api32.forward(params32, fed, return_hidden=True)
+        ref32 = unembed(hidden[:, list(SSM_CHECK_POSITIONS)], params32["embed"], cfg32)
+        del hidden, params32
+        fp32_pos, fp32_mean = logit_errors(dec32, ref32)
+    log(f"ssm: {model}: bf16 engine vs bf16 forward logits at positions {SSM_CHECK_POSITIONS}: "
+        f"max |err| / max(1, max |logit|) = {bf16_pos}, mean {bf16_mean:.2e} (position 0 tol "
+        f"{LOGIT_TOL}, the others {SSM_BF16_LOGIT_TOL}, mean {SSM_BF16_LOGIT_MEAN_TOL}); fp32 decode vs fp32 forward: {fp32_pos}, mean {fp32_mean:.2e} (tol "
+        f"{LOGIT_TOL}, mean {LOGIT_MEAN_TOL}); layer 0 state, engine vs chunk scan: max |err| / "
+        f"max(1, max |state|) {state_err:.2e} (tol {STATE_TOL})")
+    if bf16_pos[SSM_CHECK_POSITIONS[0]] > LOGIT_TOL:
+        raise AssertionError(f"{model}: bf16 decode logits at position 0 disagree with the forward")
+    if max(bf16_pos.values()) > SSM_BF16_LOGIT_TOL or bf16_mean > SSM_BF16_LOGIT_MEAN_TOL:
+        raise AssertionError(f"{model}: bf16 decode logits disagree with the forward past position 0")
+    if max(fp32_pos.values()) > LOGIT_TOL or fp32_mean > LOGIT_MEAN_TOL:
+        raise AssertionError(f"{model}: fp32 decode logits disagree with the teacher-forced forward")
+    if not state_err <= STATE_TOL:
+        raise AssertionError(f"{model}: the engine's SSM state disagrees with the chunk scan")
+    out.update(bf16_logit_err=bf16_pos, bf16_logit_mean_err=bf16_mean, fp32_logit_err=fp32_pos,
+               fp32_logit_mean_err=fp32_mean, state_err=state_err)
+    if profile:  # decodes on past the checked state
+        phase_profile(torch, engine, engine.cache, new)
+
+    if prefill_len:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, prefill_len))).to(DEVICE)
+        runs = []
+        with torch.no_grad():
+            for _ in range(2):  # the first pays first-use allocations
+                before = read_counts()
+                sync(torch)
+                t0 = time.perf_counter()
+                logits = api.forward(engine.params, tokens, last_only=True)
+                sync(torch)
+                runs.append(time.perf_counter() - t0)
+                check_launches(before, ssm_launches(cfg, "forward"), f"{model} prefill")
+        if logits.shape != (1, 1, cfg.vocab_size) or not bool(logits.isfinite().all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
+        out.update(prefill_len=prefill_len, prefill_ms=runs[1] * 1e3,
+                   prefill_tokens_per_s=prefill_len / runs[1], prefill_first_ms=runs[0] * 1e3)
+        log(f"ssm: {model}: prefill of {prefill_len} tokens at batch 1 (forward, last_only): "
+            f"{runs[1] * 1e3:.3f} ms, {prefill_len / runs[1]:.1f} tokens/s (first run "
+            f"{runs[0] * 1e3:.3f} ms) on {smi}")
+        if profile:
+            phase_profile_prefill(torch, lambda: api.forward(engine.params, tokens, last_only=True))
+    return out
+
+
+def phase_profile_prefill(torch, run):
+    """Device time of one more prefill by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync(torch)
+        wall = time.perf_counter() - t0
+    groups, total = {}, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        total += t
+        low = ev.key.lower()
+        if "ssd_scan" in low:
+            g = "B4 ssd_scan (CUDA)"
+        elif "rmsnorm" in low:
+            g = "B3a rmsnorm (Triton)"
+        elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")):
+            g = "matmul (cuBLAS)"
+        elif any(x in low for x in ("elementwise", "reduce", "copy", "vectorized", "index",
+                                    "fill", "cat")):
+            g = "PyTorch elementwise/reduce/copy/index"
+        else:
+            g = "other: " + ev.key[:60]
+        groups[g] = groups.get(g, 0.0) + t
+    log(f"profile prefill: wall {wall * 1e3:.3f} ms, device busy {total / 1e3:.3f} ms "
+        f"({100 * total / 1e6 / wall:.1f} %)")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"profile prefill:   {t / 1e3:9.3f} ms  {g}")
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -767,7 +1107,17 @@ def main() -> int:
     api, params, opt, batch, train_step, train_launches, train = phase_train(torch, args.seed, smi)
     if args.profile:
         phase_profile_train(torch, params, opt, batch, train_step)
+    del api, params, opt, batch, train_step
+    torch.cuda.empty_cache()
     log(f"train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reset_counts()
+    ssm = {m: phase_ssm(torch, args.seed, smi, m, PREFILL_LEN if m == PREFILL_MODEL else 0,
+                        args.profile)
+           for m in SSM_MODELS}
+    ssm_launches_all = read_counts()
+    torch.cuda.empty_cache()
+    log(f"ssm: launches in all {ssm_launches_all}; {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -783,8 +1133,9 @@ def main() -> int:
         "flash_attention_bwd": ("cuda", FLASH_SRC, "src/repro/models/blocked_attention.py:137",
                                 "train"),
         "rmsnorm_bwd": ("triton", RMSNORM_SRC, "src/repro/models/layers.py:31", "train"),
+        "ssd_scan": ("cuda", SSD_SRC, "src/repro/kernels/ssd_scan/ssd_scan.py:105", "ssm"),
     }
-    by_path = {"serve": serve_launches, "train": train_launches}
+    by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -804,6 +1155,7 @@ def main() -> int:
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("a kernel time is not finite")
     log("train: " + json.dumps(train))
+    log("ssm: " + json.dumps(ssm))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,5 +11,6 @@ Each kernel package ships three layers, as the JAX package's do:
 Nothing here builds or imports a kernel when the package is imported.
 The wrappers are ``decode_attention.ops.decode_attention``,
 ``flash_attention.ops.flash_attention`` (an autograd Function with a
-backward kernel) and ``rmsnorm.ops.rmsnorm`` (likewise).
+backward kernel), ``rmsnorm.ops.rmsnorm`` (likewise) and
+``ssd_scan.ops.ssd`` (forward only).
 """

@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
 """Model registry: the counterpart of ``repro.models.registry``.
 
 ``build_model(cfg, device=...)`` returns a :class:`ModelApi` of plain
-functions bound to the config and the device.  The port covers the dense
-and VLM families; the others raise ``NotImplementedError``.  ``batch_spec``
+functions bound to the config and the device.  The port covers the dense,
+VLM, SSM (mamba2) and hybrid (zamba2) families; MoE and the
+encoder-decoder family raise ``NotImplementedError``.  ``batch_spec``
 describes the model inputs per shape kind (train / prefill / decode) as
 (shape, torch dtype) pairs, as the JAX package's does.
 """

@@ -1,5 +1,5 @@
-"""Pattern-based LM for the dense and VLM families: the counterpart of
-``repro.models.transformer``.
+"""Pattern-based LM for the dense, VLM, SSM and hybrid families: the
+counterpart of ``repro.models.transformer``.
 
 Depth is ``n_groups`` repetitions of ``cfg.pattern`` plus an unrolled tail
 when depth % pattern != 0, with the per-group parameters stacked on a leading
@@ -9,8 +9,11 @@ with ``remat`` each group is a non-reentrant ``torch.utils.checkpoint``
 (only its input is kept; the group is recomputed in the backward pass), as
 ``jax.checkpoint(body, nothing_saveable)`` does.
 
-The other families (mamba, moe, shared_attn blocks) are not ported yet and
-raise ``NotImplementedError``.
+"mamba" blocks are the Mamba2 mixer of :mod:`.mamba2` (no MLP).  A
+"shared_attn" block (zamba2) applies the ONE parameter set ``params["shared"]``
+at every occurrence, each occurrence with its own KV cache.  MoE blocks and
+the encoder-decoder family are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ from .layers import (
     rope_frequencies,
     unembed,
 )
+from .mamba2 import init_mamba_block, init_mamba_cache, mamba_block, mamba_decode_step
 
-PORTED_KINDS = ("attn", "global", "swa")
+PORTED_KINDS = ("attn", "global", "swa", "mamba", "shared_attn")
 
 
 def _kind_window(kind: str, cfg: ModelConfig) -> Optional[int]:
@@ -72,6 +76,11 @@ def init_block(
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     pdt = dt(cfg.param_dtype)
+    if kind == "mamba":
+        return {
+            "ln1": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
+            "mamba": init_mamba_block(gen, cfg, lead),
+        }
     return {
         "ln1": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
         "attn": init_attention(gen, cfg, lead),
@@ -93,9 +102,15 @@ def init_lm(cfg: ModelConfig, device, seed: int = 0) -> Dict:
         "final_norm": init_rmsnorm(cfg.d_model, dt(cfg.param_dtype), device),
     }
     if g > 0:
+        # a shared_attn position has no per-group weights: it lives in
+        # params["shared"], as in the JAX tree
         params["groups"] = {
-            f"pos{i}": init_block(gen, kind, cfg, lead=(g,)) for i, kind in enumerate(pat)
+            f"pos{i}": init_block(gen, kind, cfg, lead=(g,))
+            for i, kind in enumerate(pat)
+            if kind != "shared_attn"
         }
+    if "shared_attn" in pat:
+        params["shared"] = init_block(gen, "shared_attn", cfg)
     if tail_kinds:
         params["tail"] = {
             f"pos{i}": init_block(gen, kind, cfg) for i, kind in enumerate(tail_kinds)
@@ -111,16 +126,18 @@ def _tables(
     cache: Optional[Dict] = None,
     cache_index: Optional[int] = None,
 ) -> Dict:
-    """What every layer of one call shares: RoPE cos/sin per theta and, when
-    decoding, the slot positions per distinct cache length (the SWA ring and
-    the full-length cache)."""
-    thetas = {_kind_theta(kind, cfg) for kind in cfg.layer_kinds()}
+    """What every layer of one call shares: RoPE cos/sin per theta of the
+    attention blocks and, when decoding, the slot positions per distinct KV
+    cache length (the SWA ring and the full-length cache)."""
+    thetas = {_kind_theta(kind, cfg) for kind in cfg.layer_kinds() if kind != "mamba"}
     tables: Dict[str, Dict] = {
         "rope": {th: rope_frequencies(cfg.head_dim_, positions, th) for th in thetas},
         "slots": {},
     }
     if cache is not None:
-        lengths = {c["k"].shape[-3] for part in cache.values() for c in part.values()}
+        lengths = {
+            c["k"].shape[-3] for part in cache.values() for c in part.values() if "k" in c
+        }
         tables["slots"] = {
             n: ring_positions(cache_index, n, x.shape[0], x.device) for n in lengths
         }
@@ -140,6 +157,10 @@ def apply_block(
     """One block; returns the new residual stream (a cache is written in
     place)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        if cache is not None:
+            return x + mamba_decode_step(bp["mamba"], h, cache, cfg)
+        return x + mamba_block(bp["mamba"], h, cfg)[0]
     attn_out, _ = attention_block(
         bp["attn"],
         h,
@@ -164,12 +185,15 @@ def _apply_pattern(
     positions: torch.Tensor,
     cfg: ModelConfig,
     tables: Dict,
+    shared: Optional[Dict] = None,
     caches: Optional[Dict] = None,
     cache_index: Optional[int] = None,
 ) -> torch.Tensor:
     for i, kind in enumerate(kinds):
+        # a shared_attn block runs the model's one shared parameter set
+        bp = shared if kind == "shared_attn" else gp[f"pos{i}"]
         cache_i = caches[f"pos{i}"] if caches is not None else None
-        x = apply_block(kind, gp[f"pos{i}"], x, positions, cfg, tables, cache_i, cache_index)
+        x = apply_block(kind, bp, x, positions, cfg, tables, cache_i, cache_index)
     return x
 
 
@@ -185,13 +209,14 @@ def _apply_stack(
     """All blocks: the stacked groups in order (each checkpointed with
     ``remat``), then the tail."""
     tables = _tables(x, positions, cfg, cache, cache_index)
+    shared = params.get("shared")
     pat = cfg.pattern
     g = cfg.n_layers // len(pat)
     for i in range(g):
         gp = _group_slice(params["groups"], i)
         if remat:
             x = checkpoint(
-                _apply_pattern, x, gp, pat, positions, cfg, tables, use_reentrant=False
+                _apply_pattern, x, gp, pat, positions, cfg, tables, shared, use_reentrant=False
             )
             continue
         x = _apply_pattern(
@@ -201,6 +226,7 @@ def _apply_stack(
             positions,
             cfg,
             tables,
+            shared,
             _group_slice(cache["groups"], i) if cache is not None else None,
             cache_index,
         )
@@ -213,6 +239,7 @@ def _apply_stack(
             positions,
             cfg,
             tables,
+            shared,
             cache["tail"] if cache is not None else None,
             cache_index,
         )
@@ -287,10 +314,13 @@ def _init_block_cache(
 ) -> Dict:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind == "mamba":
+        return init_mamba_cache(cfg, batch, device, lead)
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError("the int8 KV cache is not ported yet")
     # SWA blocks never attend beyond their window -> a ring buffer of window
-    # length (5/6 of gemma3's layers)
+    # length (5/6 of gemma3's layers); a shared_attn occurrence keeps a
+    # full-length cache of its own
     length = max_len
     if kind == "swa":
         length = min(max_len, cfg.sliding_window)
@@ -328,7 +358,7 @@ def decode_step(
     pos_index: int,  # write position in the cache
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode against the KV cache; returns (logits [B, 1, V],
+    """One-token decode against the KV/SSM cache; returns (logits [B, 1, V],
     cache).  The cache is updated in place and returned for symmetry with
     the JAX function, which returns a new one."""
     x = embed(tokens, params["embed"], cfg)

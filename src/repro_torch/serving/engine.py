@@ -1,9 +1,12 @@
 """Batched greedy decode engine: the counterpart of ``repro.serving.engine``.
 
 ``serve_step`` -- one new token for every sequence of the batch against the
-KV cache -- is the serving hot path: each step runs every attention layer
-through the decode-attention kernel and every norm through the rmsnorm
-kernel.
+KV/SSM cache -- is the serving hot path: each step runs every attention
+layer through the decode-attention kernel, every mamba layer through its
+O(1) state update, and every norm through the rmsnorm kernel.  The prompt is
+fed token by token, as the JAX engine does, so serving never runs the SSD
+chunk scan; the teacher-forced ``forward`` (and its ``last_only`` prefill
+form) does.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ def make_serve_step(api: ModelApi) -> Callable:
 
 
 class DecodeEngine:
-    """Minimal batched engine: static batch, greedy sampling, the KV cache
-    on the model's device and updated in place."""
+    """Minimal batched engine: static batch, greedy sampling, the KV/SSM
+    cache on the model's device and updated in place."""
 
     def __init__(self, api: ModelApi, params: Any, batch: int, max_len: int):
         self.api = api

@@ -61,6 +61,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     tiny = dataclasses.replace(
         base.reduced(registry.get_config("gemma3-1b")), name="tiny", n_layers=8,
@@ -70,6 +71,14 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         base.reduced(registry.get_config("h2o-danube-1.8b")), name="tiny-train", n_layers=3,
         sliding_window=16, param_dtype="bfloat16", compute_dtype="bfloat16",
     )
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    tiny_mamba = dataclasses.replace(
+        base.reduced(registry.get_config("mamba2-370m")), name="tiny-mamba", n_layers=3, **bf16)
+    # one group of the 6-block pattern plus a tail of 2 mamba blocks
+    tiny_zamba = dataclasses.replace(
+        base.reduced(registry.get_config("zamba2-1.2b")), name="tiny-zamba", n_layers=8, **bf16)
+    monkeypatch.setitem(registry.ARCHS, "tiny-mamba", tiny_mamba)
+    monkeypatch.setitem(registry.ARCHS, "tiny-zamba", tiny_zamba)
     monkeypatch.setitem(registry.ARCHS, "tiny", tiny)
     monkeypatch.setitem(registry.ARCHS, "tiny-train", tiny_train)
     for name, value in dict(
@@ -79,7 +88,16 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         FLASH_CASES=[("h2o-danube train", 2, 40, 8, 2, 16, True, 16),
                      ("gemma3-1b forward, global", 2, 24, 4, 1, 16, True, None)],
         FLASH_FP32_CASES=[("fp32 non-causal", 1, 20, 4, 1, 16, False, None)],
+        RMSNORM_CASES=[(4, 64), (40, 128)], RMSNORM_RESIDUAL_CASES=[(4, 64)],
         RMSNORM_BWD_CASES=[(40, 64), (4, 64)],
+        SSD_CASES=[("mamba2-370m prefill", 1, 64, 4, 16, 16, 1, "float32", False),
+                   ("zamba2-1.2b forward", 2, 32, 4, 16, 8, 1, "float32", False)],
+        SSD_EDGE_CASES=[("S < chunk", 1, 10, 4, 16, 16, 1, "float32", False),
+                        ("G 2", 1, 32, 4, 16, 8, 2, "float32", True),
+                        ("bf16 inputs", 1, 32, 4, 16, 8, 1, "bfloat16", False)],
+        SSD_CHUNK=16, SSM_MODELS=("tiny-mamba", "tiny-zamba"), SSM_PROMPT_LEN=25,
+        SSM_NEW_TOKENS=8, SSM_MAX_LEN=32, SSM_BATCH=2, SSM_CHECK_POSITIONS=(0, 15, 16, 31),
+        PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
         phase_build=lambda torch: None,
     ).items():
@@ -107,6 +125,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         fa_ops.flash_attention_ref, fa_ops.flash_attention))
     monkeypatch.setattr(fa_ops, "flash_attention_bwd_ref", counting(
         fa_ops.flash_attention_bwd_ref, fa_ops.flash_attention, "backward_launches"))
+    monkeypatch.setattr(ssd_ops, "ssd_ref", counting(ssd_ops.ssd_ref, ssd_ops.ssd))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -117,7 +136,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
     kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
     assert sorted(kernels) == ["decode_attention", "flash_attention", "flash_attention_bwd",
-                               "rmsnorm", "rmsnorm_bwd", "rmsnorm_residual"]
+                               "rmsnorm", "rmsnorm_bwd", "rmsnorm_residual", "ssd_scan"]
     steps = 10 + 4 - 1
     assert kernels["decode_attention"]["launches"] == 8 * steps
     assert kernels["rmsnorm"]["launches"] == 17 * steps
@@ -128,6 +147,15 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert kernels["flash_attention_bwd"]["launches"] == 4 * 3
     assert kernels["rmsnorm_bwd"]["launches"] == 4 * 7
     assert kernels["rmsnorm"]["launches_by_path"]["train"] == 2 * 7 + 4 * 13
+    # ssm: tiny-mamba's bf16 and fp32 forwards, its layer-0 state check and
+    # two prefills (3 mamba layers each), tiny-zamba's two forwards (7) and
+    # state check; the decode runs no B4
+    assert kernels["ssd_scan"]["launches"] == (3 + 3 + 1 + 2 * 3) + (7 + 7 + 1)
+    assert kernels["ssd_scan"]["launches_by_path"]["serve"] == 0
+    ssm = kernels["decode_attention"]["launches_by_path"]["ssm"]
+    assert ssm == 1 * 2 * (25 + 8 - 1)  # tiny-zamba's shared attention, bf16 and fp32 decode
+    assert kernels["flash_attention"]["launches_by_path"]["ssm"] == 2
+    assert kernels["ssd_scan"]["library_ms"] is None
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",
             "launches_by_path"}

@@ -8,9 +8,9 @@ CUDA and run on the card with
 Tolerances: fp32 outputs within 1e-4 relative + 1e-5 absolute; bf16 outputs
 within one bf16 ulp (2^-7 relative) + 1e-5, since both sides accumulate in
 fp32 and round once.  Gradients (flash attention dq/dk/dv, rmsnorm dx and
-d(scale)) are sums over many rows whose order differs between the kernel
-and the plain version, so their absolute term is 1e-5 times the largest
-|value| of the tensor (at least 1e-5) instead."""
+d(scale)) and the SSD scan's y and state are sums over many rows whose order
+differs between the kernel and the plain version, so their absolute term is
+1e-5 times the largest |value| of the tensor (at least 1e-5) instead."""
 
 import pytest
 
@@ -74,7 +74,7 @@ def test_decode_kernel_rejects_what_it_has_no_instance_for(cuda):
         ops.decode_attention(q, k, k, pos_q.long(), pos_k)
 
 
-@pytest.mark.parametrize("rows,d", [(1, 64), (5, 1152), (33, 4096)])
+@pytest.mark.parametrize("rows,d", [(1, 64), (5, 1152), (7, 1024), (1022, 2048), (33, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, with_residual):
@@ -230,3 +230,102 @@ def test_train_step_on_card_runs_no_plain_version(cuda, monkeypatch):
     # eval: 2n+1; step: 2n+1 forward, 2n recomputed, 2n+1 backward
     assert norm_ops.rmsnorm.launches == 3 * (2 * n + 1) - 1
     assert norm_ops.rmsnorm.backward_launches == 2 * n + 1
+
+
+# SSD chunk scan: (B, S, H, P, N, G, dtype, initial state) -- chip_smoke's
+# phase 3 shapes (the mamba2-370m prefill and the two models' forwards) and
+# its edge cases: S < chunk, G 2, an initial state, bf16 inputs
+SSD_CASES = [
+    (1, 32768, 32, 64, 128, 1, torch.float32, False),
+    (4, 512, 32, 64, 128, 1, torch.float32, False),
+    (4, 512, 64, 64, 64, 1, torch.float32, False),
+    (2, 100, 8, 64, 128, 1, torch.float32, False),
+    (2, 512, 8, 64, 64, 2, torch.float32, False),
+    (2, 512, 8, 64, 128, 1, torch.float32, True),
+    (2, 512, 8, 64, 128, 1, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,dtype,init", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, g, dtype, init):
+    """y within one bf16 ulp (bf16) or 1e-4 relative (fp32), and the fp32
+    final state within 1e-4 relative, each plus 1e-5 x the largest value:
+    y and the state sum up to a chunk of terms in another order."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(s + h + n + g)
+    x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
+    dA = -F.softplus(torch.randn(b, s, h, generator=gen, device=cuda))
+    # B and C as strided views of one [B, S, 2GN] tensor, as the model has them
+    bc = (torch.randn(b, s, 2 * g * n, generator=gen, device=cuda) * 0.5).to(dtype)
+    B_, C_ = bc[..., : g * n].view(b, s, g, n), bc[..., g * n :].view(b, s, g, n)
+    state = torch.randn(b, h, p, n, generator=gen, device=cuda) if init else None
+    before = ops.ssd.launches
+    y, final = ops.ssd(x, dA, B_, C_, 256, state)
+    ref_y, ref_final = ssd_ref(x, dA, B_, C_, min(256, s), state)
+    torch.cuda.synchronize()
+    assert ops.ssd.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape and final.dtype == torch.float32
+    _close_grad(y, ref_y, dtype)
+    _close_grad(final, ref_final, torch.float32)
+
+
+def test_ssd_kernel_refuses_gradients_and_missing_instances(cuda):
+    from repro_torch.kernels.ssd_scan import ops
+
+    x = torch.zeros(1, 64, 2, 64, device=cuda, requires_grad=True)
+    dA = torch.zeros(1, 64, 2, device=cuda)
+    bc = torch.zeros(1, 64, 1, 128, device=cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd(x, dA, bc, bc, 64)
+    with torch.no_grad():
+        y, _ = ops.ssd(x, dA, bc, bc, 64)  # no gradient asked for: the kernel runs
+    assert bool((y == 0).all())
+    with pytest.raises(NotImplementedError):
+        ops.ssd(x.detach(), dA, bc[..., :32], bc[..., :32], 64)  # d_state 32
+    with pytest.raises(TypeError):
+        ops.ssd(x.detach(), dA.bfloat16(), bc, bc, 64)
+
+
+def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
+    """A mamba2 and a zamba2 smoke model (head_dim 64, d_state 64) on the
+    card with every plain version made to raise: the forward runs B4 in
+    every mamba layer and B1 in the shared attention, a decode step B2, and
+    decode agrees with the forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((fa_ops, "flash_attention_ref"), (dec_ops, "decode_attention_ref"),
+                      (norm_ops, "rmsnorm_ref"), (ssd_ops, "ssd_ref")):
+        monkeypatch.setattr(mod, name, boom)
+    for arch, n_layers in (("mamba2-370m", 2), ("zamba2-1.2b", 8)):
+        cfg = dataclasses.replace(
+            get_config(arch + "-smoke"), n_layers=n_layers, d_model=128, head_dim=64,
+            ssm=SSMConfig(d_state=64, head_dim=64, expand=2, n_groups=1, chunk=32))
+        api = build_model(cfg, device=cuda)
+        params = api.init(seed=0)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+        n_mamba = cfg.layer_kinds().count("mamba")
+        before = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+        with torch.no_grad():
+            full = api.forward(params, tokens).float()
+            after = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+            assert after == (before[0] + n_mamba, before[1] + n_layers - n_mamba)
+            cache = api.init_cache(2, 64)
+            for i in range(64):
+                lg, cache = api.decode_step(params, cache, tokens[:, i : i + 1], i)
+                err = (lg[:, 0].float() - full[:, i]).abs().max().item()
+                assert err < 1e-4 * max(1.0, full[:, i].abs().max().item()), (arch, i, err)
