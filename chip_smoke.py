@@ -7,11 +7,15 @@ Phases, each of which must pass (any failure exits non-zero):
   1. device  -- CUDA present; the card's name and power limit from nvidia-smi;
   2. build   -- nvcc builds the CUDA kernels from the sources in this checkout
                 (into src/repro_torch/kernels/_build/, one nvcc per source, all
-                started together), Triton JITs its kernels;
+                started together), Triton JITs its kernels; cuobjdump's SASS of
+                the flash-attention library must show tensor-core instructions
+                (HMMA) in every instance of the bf16 B1 kernels;
   3. kernels -- each kernel of the serving and training paths, at the paths'
                 shapes, held against its plain PyTorch version on the card,
                 and timed beside the plain version, a PyTorch library call and
-                its bound;
+                its bound (B1 also in TFLOP/s; B1 in bf16 rounds P and dS to
+                bf16, so it is held, row by row and in the mean, to twice the
+                error of the plain version that rounds at the same points);
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -198,6 +202,26 @@ def check_close(name, out, ref, rtol, atol):
     return diff.max().item()
 
 
+def check_rounded(name, out, ref, ref_p):
+    """The gate of a kernel that rounds inside (B1 bf16 rounds P and dS to
+    bf16 as tensor-core operands), against ``ref``, the fp32 plain version,
+    and ``ref_p``, the fp32 plain version rounding at the kernel's points:
+    ``rounding_ratios`` (per row, the error beyond the output's own rounding
+    within 2 x the row's error of ``ref_p`` + 1e-5 x max(1, max|row|); and
+    the mean error within 2 x ``ref_p``'s) at most 1.  Returns
+    (max |out - ref|, row ratio, mean ratio)."""
+    from repro_torch.kernels.flash_attention.ref import rounding_ratios
+
+    o, r = out.float(), ref.float()
+    if o.shape != r.shape or not bool(o.isfinite().all()):
+        raise AssertionError(f"{name}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite")
+    row, mean = rounding_ratios(out, ref, ref_p)
+    if row > 1 or mean > 1:
+        raise AssertionError(f"{name}: row ratio {row:.3f}, mean ratio {mean:.3f} beyond 1 (the "
+                             "error of the plain version that rounds P and dS where it does)")
+    return (o - r).abs().max().item(), row, mean
+
+
 # ------------------------------------------------------------ phase 1
 def phase_device(torch):
     if not torch.cuda.is_available():
@@ -236,6 +260,40 @@ def phase_build(torch):
     log(f"build: nvcc {nvcc_s:.2f} s for {sorted(build.SOURCES)} (ptxas register and "
         f"spill report in {build.BUILD_DIR.relative_to(ROOT)}/*.log), "
         f"triton JIT {triton_s:.2f} s")
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    check_tensor_cores(mma_counts(sass))
+
+
+# the bf16 B1 kernels, which must run on the tensor cores
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+
+
+def mma_counts(sass: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per function of a
+    ``cuobjdump -sass`` listing, by the function's (mangled) name."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
+def check_tensor_cores(counts: dict) -> None:
+    """Raises unless every instance of every bf16 B1 kernel has tensor-core
+    instructions; logs the count of each."""
+    for base in TENSOR_CORE_KERNELS:
+        found = {fn: n for fn, n in counts.items() if base in fn}
+        if not found:
+            raise AssertionError(f"SASS: no instance of {base} in the flash_attention library")
+        for fn, n in sorted(found.items()):
+            log(f"build: SASS {n} HMMA/HGMMA in {fn}")
+            if n == 0:
+                raise AssertionError(f"SASS: {fn} has no tensor-core instruction")
 
 
 def counters():
@@ -382,7 +440,11 @@ def flash_cases(torch, timer, gen):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        kernel_key_tile,
+    )
 
     fwd_cases, bwd_cases = [], []
     for label, b, s, hq, hkv, d, causal, window in FLASH_CASES + FLASH_FP32_CASES:
@@ -394,22 +456,40 @@ def flash_cases(torch, timer, gen):
         q, k, v, dout = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
         name = f"flash_attention {label} [{b},{s},{hq}/{hkv},{d}] window={window}"
         out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
-        ref, ref_lse = flash_attention_ref(q, k, v, causal=causal, window=window)
         grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
-        ref_grads = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+        f32 = [t.float() for t in (q, k, v, out, dout)]  # the same values in fp32
+        kw = dict(causal=causal, window=window)
+        ref, ref_lse = flash_attention_ref(*f32[:3], **kw)
+        ref_grads = flash_attention_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw)
         sync(torch)
-        rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
-        err = max(check_close(name, out, ref, rtol, 1e-5),
-                  check_close(name + " lse", lse, ref_lse, 1e-4, 1e-5))
-        # gradients sum over up to S keys (dq) or S x G query rows (dk, dv) in
-        # another order than the plain version: absolute term scaled by the
-        # tensor's largest value
-        gerr = max(check_close(f"{name} d{n}", g, r, rtol, 1e-5 * max(1.0, r.float().abs().max().item()))
-                   for n, g, r in zip("qkv", grads, ref_grads))
-        del ref, ref_lse, ref_grads, grads
+        lerr = check_close(name + " lse", lse, ref_lse, 1e-4, 1e-5)
         if dtype != torch.bfloat16:
+            err = max(check_close(name, out, ref, 1e-4, 1e-5), lerr)
+            # gradients sum over up to S keys (dq) or S x G query rows (dk, dv)
+            # in another order than the plain version: absolute term scaled by
+            # the tensor's largest value
+            gerr = max(check_close(f"{name} d{n}", g, r, 1e-4,
+                                   1e-5 * max(1.0, r.float().abs().max().item()))
+                       for n, g, r in zip("qkv", grads, ref_grads))
+            del ref, ref_lse, ref_grads, grads, f32
             log(f"kernels: {name} fp32 max|err| out {err:.2e}, grads {gerr:.2e} (rtol 1e-4)")
             continue
+        # bf16 runs on the tensor cores, which round P (and dS) to bf16: held
+        # against the fp32 plain version, with the error of the fp32 plain
+        # version that rounds where the kernel does (and folds keys in its
+        # tiles) as the yardstick
+        kw_p = dict(kw, p_dtype=torch.bfloat16, block_k=kernel_key_tile(d))
+        err, row, mean = check_rounded(name, out, ref, flash_attention_ref(*f32[:3], **kw_p)[0])
+        err = max(err, lerr)
+        ratios = [f"out {row:.3f}/{mean:.3f}"]
+        gerr = 0.0
+        grads_p = flash_attention_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw_p)
+        for n, g, r, rp in zip("qkv", grads, ref_grads, grads_p):
+            e, row, mean = check_rounded(f"{name} d{n}", g, r, rp)
+            gerr = max(gerr, e)
+            ratios.append(f"d{n} {row:.3f}/{mean:.3f}")
+        del f32, ref, ref_lse, ref_grads, grads_p, grads
+        log(f"kernels: {name}: gate row/mean ratios (pass <= 1) {', '.join(ratios)}")
         pairs = b * hq * kept_pairs(s, causal, window)
         io = (2 * b * s * hq * d + 2 * b * s * hkv * d) * 2  # q, k, v in; out
         lse_bytes = b * hq * s * 4
@@ -427,9 +507,12 @@ def flash_cases(torch, timer, gen):
         fwd_cases.append(dict(case=label, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=causal,
                               window=window, dtype="bfloat16", pairs=pairs, ms=ms,
                               plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                              max_abs_err=err))
+                              max_abs_err=err, tflops=4 * pairs * d / ms / 1e9))
         log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound "
-            f"{bound:.4f} by {by}; {pairs:.4g} pairs), max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
+            f"{bound:.4f} by {by}; {pairs:.4g} pairs), max|err| {err:.2e} (gate: the bf16-P plain "
+            f"version's error, per row and in the mean)")
+        log(f"kernels: {name}: {4 * pairs * d / ms / 1e9:.1f} TFLOP/s forward "
+            f"(4 x pairs x D / ms; sdpa {4 * pairs * d / lib / 1e9:.1f})")
 
         bms = timer(lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window))
         bplain = timer(lambda: flash_attention_bwd_ref(
@@ -444,10 +527,12 @@ def flash_cases(torch, timer, gen):
         bwd_cases.append(dict(case=label, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=causal,
                               window=window, dtype="bfloat16", pairs=pairs, ms=bms,
                               plain_ms=bplain, library_ms=blib, bound_ms=bbound, bound_by=bby,
-                              max_abs_err=gerr))
+                              max_abs_err=gerr, tflops=10 * pairs * d / bms / 1e9))
         log(f"kernels: {name} backward: {bms:.4f} ms (plain {bplain:.4f}, sdpa backward "
-            f"{blib:.4f}, bound {bbound:.4f} by {bby}), max|err| {gerr:.2e} (rtol 2^-7, atol "
-            f"1e-5 x max|ref|)")
+            f"{blib:.4f}, bound {bbound:.4f} by {bby}), max|err| {gerr:.2e} (gate: the bf16-P "
+            f"plain version's error, per row and in the mean)")
+        log(f"kernels: {name} backward: {10 * pairs * d / bms / 1e9:.1f} TFLOP/s (10 x pairs x D "
+            f"/ ms; the kernels execute 14 x pairs x D; sdpa {10 * pairs * d / blib / 1e9:.1f})")
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
     return fwd_cases, bwd_cases
@@ -850,7 +935,9 @@ def phase_profile_train(torch, params, opt, batch, train_step):
         if "flash_fwd" in name:
             g = "B1 flash_attention forward (CUDA)"
         elif "flash_bwd" in name:
-            g = "B1 flash_attention backward (CUDA)"
+            part = ("dK/dV" if "dkv" in name else "dQ" if "_dq_" in name
+                    else "delta" if "delta" in name else "other")
+            g = f"B1 flash_attention backward, {part} (CUDA)"
         elif "rmsnorm_bwd" in name or "rmsnorm_dw" in name:
             g = "B3a rmsnorm backward (Triton)"
         elif "rmsnorm_kernel" in name:

@@ -4,8 +4,10 @@ Each kernel keeps its source under ``<kernel>/csrc/`` with a plain C entry
 point (pointers and the stream as ``void*``, returning ``cudaGetLastError()``
 as an int).  On first use the source is compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library under
-``kernels/_build/``, named by a hash of the source so that an edited source
-is rebuilt, and loaded with :mod:`ctypes`.  Nothing is built on import.
+``kernels/_build/``, named by a hash of every file under the source's
+``csrc/`` (the source and any header it includes from there, with ``-I``
+that directory) so that an edited source or header is rebuilt, and loaded
+with :mod:`ctypes`.  Nothing is built on import.
 """
 
 from __future__ import annotations
@@ -55,9 +57,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = KERNELS_DIR / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    csrc = (KERNELS_DIR / SOURCES[name]).parent
+    h = hashlib.sha1()
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(csrc)).encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _build(name: str) -> Path:
@@ -68,7 +72,8 @@ def _build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNELS_DIR / SOURCES[name])]
+    src = KERNELS_DIR / SOURCES[name]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(src.parent), "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out.with_suffix(".log").write_text(res.stdout)
     if res.returncode != 0:

@@ -17,6 +17,14 @@ teacher-forced forward).  Key j takes part in query i's row iff j < Sk, and
 
 A row with no key in its mask gives 0 and a log-sum-exp of -inf, as the
 kernels do, and no gradient.
+
+``p_dtype`` (default ``None``: everything in fp32) rounds P to that dtype
+before P·V, and P and dS before the dV, dK and dQ products: the points where
+the bf16 tensor-core kernels round their A operands.  With ``block_k`` set to
+:func:`kernel_key_tile`, the forward also folds keys in the kernel's tiles,
+so its running maxima, and with them its rounded P, are the kernel's.
+:func:`rounding_ratios` is the check that the card's tests hold the bf16
+kernels to with it.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ def flash_attention_ref(
     window: Optional[int] = None,
     sm_scale: Optional[float] = None,
     block_k: int = BLOCK_K,
+    p_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] fp32)."""
     b, sq, hq, d = q.shape
@@ -70,7 +79,8 @@ def flash_attention_ref(
         p = torch.exp(s - m_safe[..., None])  # exp(-inf) = 0 where masked
         alpha = torch.exp(m_run - m_safe)
         l_run = l_run * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, k0:k1].float())
+        pv = p if p_dtype is None else p.to(p_dtype).float()
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", pv, v[:, k0:k1].float())
         m_run = m_new
     out = acc / l_run.clamp_min(1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
@@ -90,6 +100,7 @@ def flash_attention_bwd_ref(
     window: Optional[int] = None,
     sm_scale: Optional[float] = None,
     block_k: int = BLOCK_K,
+    p_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (dq, dk, dv), each in its input's dtype."""
     b, sq, hq, d = q.shape
@@ -111,7 +122,10 @@ def flash_attention_bwd_ref(
         msk = _mask(sq, k0, k1, sk, causal, window, q.device)
         p = torch.where(msk, torch.exp(s - lse5), torch.zeros_like(s))
         dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vb)
-        ds = p * (dp - delta[..., None]) * scale
+        ds = p * (dp - delta[..., None])
+        if p_dtype is not None:
+            p, ds = p.to(p_dtype).float(), ds.to(p_dtype).float()
+        ds = ds * scale
         dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
         dk[:, k0:k1] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
         dv[:, k0:k1] = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
@@ -120,3 +134,44 @@ def flash_attention_bwd_ref(
         dk.to(k.dtype),
         dv.to(v.dtype),
     )
+
+
+def kernel_key_tile(head_dim: int) -> int:
+    """Keys per tile of the bf16 forward kernel (``FwdCfg::BK`` in
+    ``csrc/flash_attention.cu``)."""
+    return 32 if head_dim > 128 else 64
+
+
+def _half_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Half a unit in the last place of each element of ``x`` in its dtype
+    (fp32; 0 at 0): the most that rounding to ``x``'s dtype moved it."""
+    m, e = torch.frexp(x.float())
+    half = torch.finfo(x.dtype).eps * torch.ldexp(torch.ones_like(m), e - 2)
+    return torch.where(m == 0, torch.zeros_like(half), half)
+
+
+def rounding_ratios(out: torch.Tensor, ref: torch.Tensor, ref_p: torch.Tensor) -> Tuple[float, float]:
+    """How far a kernel that rounds inside stays within the error that the
+    rounding alone gives; each ratio is at most 1 when it passes.
+
+    ``ref`` is the plain version in fp32; ``ref_p`` is the plain version in
+    fp32 that rounds where the kernel rounds (``p_dtype``, ``block_k =
+    kernel_key_tile(D)``).  A row is the last dim: one query row of out or
+    dq, one key row of dk or dv.
+
+    * row ratio: for every row, max over the row of
+      max(0, |out - ref| - half_ulp(out)) over
+      2 x max over the row of |ref_p - ref| + 1e-5 x max(1, max over the row of |ref|).
+      Half an ulp of ``out`` takes away the kernel's last rounding, to its
+      output dtype; the floor is fp32 summation noise where the true value is
+      about 0 (a causal row of one key has dq = dk = 0).
+    * mean ratio: mean |out - ref| over 2 x mean |ref_p in out's dtype - ref|
+      + 1e-5 x max(1, mean |ref|), over the whole tensor.
+    """
+    o, r, rp = out.float(), ref.float(), ref_p.float()
+    excess = ((o - r).abs() - _half_ulp(out)).clamp_min(0)
+    row_limit = 2 * (rp - r).abs().amax(-1) + 1e-5 * r.abs().amax(-1).clamp_min(1.0)
+    row = (excess.amax(-1) / row_limit).max().item()
+    yard = (rp.to(out.dtype).float() - r).abs().mean().item()
+    mean = (o - r).abs().mean().item() / (2 * yard + 1e-5 * max(1.0, r.abs().mean().item()))
+    return row, mean

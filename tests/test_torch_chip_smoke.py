@@ -164,3 +164,37 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         assert (k["kernel_ms"], k["max_err"]) == (k["ms"], k["max_abs_err"])
         assert (ROOT / k["source"]).exists()
         assert (ROOT / k["replaces"].split(":")[0]).exists()
+
+
+def _sass(fn_counts):
+    lines = ["", "Fatbin elf code:", "================", "arch = sm_90a"]
+    for fn, n in fn_counts.items():
+        lines += [f"\t\tFunction : {fn}", "\t.headerflags\t@\"EF_CUDA_SM90\""]
+        lines += ["        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;"]
+        lines += [f"        /*{16 * (i + 1):04x}*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;"
+                  for i in range(n)]
+        lines += ["        /*0ff0*/                   EXIT ;"]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("dkv_hmma,ok", [(3, True), (0, False), (None, False)])
+def test_sass_check_needs_tensor_cores_in_every_bf16_flash_kernel(monkeypatch, dkv_hmma, ok):
+    """The build phase's SASS check (cuobjdump runs only beside nvcc, on the
+    card's machine): every instance of the three bf16 B1 kernels must hold
+    HMMA instructions, and each kernel must have an instance."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+
+    fns = {"_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi80ELi128EEEv9FlashArgs": 96,
+           "_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi256ELi64EEEv9FlashArgs": 40,
+           "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi80ELi128EEEv9FlashArgs": 7,
+           "_ZN12_GLOBAL__N_116flash_fwd_kernelILi80ELi64EEEv9FlashArgs": 0}
+    if dkv_hmma is not None:
+        fns["_ZN12_GLOBAL__N_124flash_bwd_dkv_mma_kernelILi80EEEv9FlashArgs"] = dkv_hmma
+    counts = cs.mma_counts(_sass(fns))
+    assert counts == fns
+    if ok:
+        cs.check_tensor_cores(counts)
+    else:
+        with pytest.raises(AssertionError, match="SASS"):
+            cs.check_tensor_cores(counts)

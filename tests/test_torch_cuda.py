@@ -7,7 +7,12 @@ CUDA and run on the card with
 
 Tolerances: fp32 outputs within 1e-4 relative + 1e-5 absolute; bf16 outputs
 within one bf16 ulp (2^-7 relative) + 1e-5, since both sides accumulate in
-fp32 and round once.  Gradients (flash attention dq/dk/dv, rmsnorm dx and
+fp32 and round once.  bf16 flash attention runs on the tensor cores and
+rounds P and dS to bf16 inside, so its out, dq, dk and dv are held against
+the fp32 plain version by ``ref.rounding_ratios``: row by row and in the
+mean, within twice the error of the fp32 plain version that rounds at the
+same points (``p_dtype=torch.bfloat16``, the kernel's key tile); its lse
+keeps 1e-4.  Gradients (flash attention dq/dk/dv, rmsnorm dx and
 d(scale)) and the SSD scan's y and state are sums over many rows whose order
 differs between the kernel and the plain version, so their absolute term is
 1e-5 times the largest |value| of the tensor (at least 1e-5) instead."""
@@ -115,46 +120,101 @@ def _close_grad(out, ref, dtype):
     assert bool((diff <= atol + rtol * ref.float().abs()).all()), diff.max().item()
 
 
-FLASH_MASKS = [(True, None), (True, 24), (False, None), (False, 24)]
+# windows 24 and 130 are no multiple of the kernels' 64- or 32-key tiles
+FLASH_MASKS = [(True, None), (True, 24), (True, 130), (False, None), (False, 24), (False, 130)]
 
 
-def _flash_inputs(cuda, d, g, dtype, seed, b=2, s=77, hkv=2):
+def _close_rounded(out, ref, ref_p):
+    """bf16 flash attention rounds P (and dS) to bf16 as tensor-core
+    operands: ``rounding_ratios`` against the fp32 plain version ``ref`` and
+    the fp32 plain version ``ref_p`` that rounds where the kernel does, both
+    at most 1."""
+    from repro_torch.kernels.flash_attention.ref import rounding_ratios
+
+    assert bool(out.float().isfinite().all())
+    row, mean = rounding_ratios(out, ref, ref_p)
+    assert row <= 1 and mean <= 1, (row, mean)
+
+
+def _flash_inputs(cuda, d, g, dtype, seed, b=2, s=77, hkv=2, sq=None):
     gen = torch.Generator(device=cuda).manual_seed(seed)
+    if sq is not None:  # queries and keys of different lengths: separate tensors
+        q = torch.randn(b, sq, hkv * g, d, generator=gen, device=cuda).to(dtype)
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device=cuda).to(dtype) for _ in "kv")
+        return q, k, v
     # q, k, v sliced out of one fused projection, as strided views
     qkv = torch.randn(b, s, hkv * (g + 2), d, generator=gen, device=cuda).to(dtype)
     q, k, v = qkv.split([hkv * g, hkv, hkv], dim=2)
     return q, k, v
 
 
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernels_match_plain(cuda, d, g, dtype):
-    """Forward (out, lse) and backward (dq, dk, dv) at S 77 (a ragged last
-    tile), strided q/k/v, every mask."""
+def _check_flash(q, k, v, masks):
+    """Forward (out, lse) and backward (dq, dk, dv) through the autograd
+    Function against the plain versions, launches counted."""
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+        kernel_key_tile,
+    )
 
-    q, k, v = _flash_inputs(cuda, d, g, dtype, seed=d + g)
-    dout = torch.randn(q.shape, device=cuda).to(dtype)
-    for causal, window in FLASH_MASKS:
+    dtype = q.dtype
+    dout = torch.randn(q.shape, device=q.device).to(dtype)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))  # the same values in fp32
+    for causal, window in masks:
         before = (ops.flash_attention.launches, ops.flash_attention.backward_launches)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         out = ops.flash_attention(qg, kg, vg, causal=causal, window=window)
         dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), dout)
-        ref, lse_ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        kw = dict(causal=causal, window=window)
+        ref, lse_ref = flash_attention_ref(q32, k32, v32, **kw)
         _, lse = ops.flash_attention_fwd(q, k, v, causal, window)
-        grads_ref = flash_attention_bwd_ref(q, k, v, out.detach(), lse, dout,
-                                            causal=causal, window=window)
+        o32 = out.detach().float()
+        grads_ref = flash_attention_bwd_ref(q32, k32, v32, o32, lse, do32, **kw)
         torch.cuda.synchronize()
         assert (ops.flash_attention.launches, ops.flash_attention.backward_launches) == (
             before[0] + 2, before[1] + 1)
         assert out.dtype == dtype and out.shape == q.shape
-        _close(out, ref, dtype)
-        _close(lse, lse_ref, torch.float32)
-        for got, want in zip((dq, dk, dv), grads_ref):
+        # a row with no key in its mask has lse -inf on both sides
+        empty = lse_ref == float("-inf")
+        assert torch.equal(lse == float("-inf"), empty)
+        _close(lse[~empty], lse_ref[~empty], torch.float32)
+        if dtype == torch.bfloat16:
+            kw_p = dict(kw, p_dtype=torch.bfloat16, block_k=kernel_key_tile(q.shape[-1]))
+            ref_p, _ = flash_attention_ref(q32, k32, v32, **kw_p)
+            grads_p = flash_attention_bwd_ref(q32, k32, v32, o32, lse, do32, **kw_p)
+            _close_rounded(out, ref, ref_p)
+        else:
+            _close(out, ref, dtype)
+        for i, (got, want) in enumerate(zip((dq, dk, dv), grads_ref)):
             assert got.dtype == dtype and got.shape == want.shape
-            _close_grad(got, want, dtype)
+            if dtype == torch.bfloat16:
+                _close_rounded(got, want, grads_p[i])
+            else:
+                _close_grad(got, want, dtype)
+
+
+@pytest.mark.parametrize("s", [77, 333])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, s, d, g, dtype):
+    """Forward (out, lse) and backward (dq, dk, dv) at S 77 and 333 (ragged
+    last tiles, several 128-row and 64-key tiles), q/k/v as strided views of
+    one fused projection, every mask."""
+    q, k, v = _flash_inputs(cuda, d, g, dtype, seed=s + d + g)
+    _check_flash(q, k, v, FLASH_MASKS)
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 1), (1, 77), (77, 20), (50, 90)])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_sq_not_sk(cuda, sq, sk, d, dtype):
+    """Queries and keys of other lengths: one causal query (Sq 1), and with a
+    window of 24 under no causal mask, Sq 77 over Sk 20 leaves rows 43.. with
+    no key (output 0, lse -inf, no gradient)."""
+    q, k, v = _flash_inputs(cuda, d, 4, dtype, seed=sq + sk + d, s=sk, sq=sq)
+    _check_flash(q, k, v, [(True, None), (False, 24)])
 
 
 def test_flash_kernel_rejects_what_it_has_no_instance_for(cuda):

@@ -7,12 +7,17 @@ CPU) against the JAX package on the same inputs, made with numpy from a seed:
 * the plain backward against ``jax.vjp`` of ``blocked_attention`` (whose
   custom VJP is the rule the port copies) and against torch autograd through
   the port's own ``gqa_attention``;
-* the RMSNorm plain backward against ``jax.grad`` of JAX ``rms_norm``.
+* the RMSNorm plain backward against ``jax.grad`` of JAX ``rms_norm``;
+* the plain versions' ``p_dtype`` rounding, and the bf16 kernels' gate
+  (``rounding_ratios``) failing on faults planted into a stand-in kernel at
+  the training shape's statistics.
 
 Tolerances (max |port - JAX| over max(1, max |JAX|)): 1e-4 in fp32 for
 outputs, 2e-4 for gradients (sums over the sequence in another order);
 2e-2 in bf16 (one bf16 ulp is 2^-8..2^-7 of the value, and the two
 frameworks round intermediate values at different places)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +30,12 @@ from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.models.blocked_attention import blocked_attention
 from repro.models.layers import rms_norm as jax_rms_norm
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+    kernel_key_tile,
+    rounding_ratios,
+)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 from repro_torch.models.attention import gqa_attention
@@ -146,3 +156,131 @@ def test_rmsnorm_backward_matches_jax_grad(d, dtype):
     xg, wg = xt.clone().requires_grad_(), wt.clone().requires_grad_()
     gx, gw = torch.autograd.grad(rmsnorm(xg, wg, 1e-6), (xg, wg), dyt)
     assert torch.equal(gx, dx) and torch.equal(gw, dw)
+
+
+FLASH_REF_MASKS = [(True, None), (True, 16), (False, None), (False, 16)]
+
+
+@pytest.mark.parametrize("causal,window", FLASH_REF_MASKS)
+def test_flash_ref_p_dtype_none_is_the_fp32_plain_version(causal, window):
+    """``p_dtype=None`` leaves the plain versions bit for bit as they are
+    without the argument, forward and backward."""
+    rng = np.random.default_rng(11 + (window or 0))
+    (_, q), (_, k), (_, v) = _qkv(rng, 2, 40, 2, 4, 16, "float32")
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    out, lse = flash_attention_ref(q, k, v, causal=causal, window=window, block_k=16)
+    out_n, lse_n = flash_attention_ref(q, k, v, causal=causal, window=window, block_k=16,
+                                       p_dtype=None)
+    assert torch.equal(out, out_n) and torch.equal(lse, lse_n)
+    grads = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
+                                    block_k=16)
+    grads_n = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
+                                      block_k=16, p_dtype=None)
+    for got, want in zip(grads_n, grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("causal,window", FLASH_REF_MASKS)
+@pytest.mark.parametrize("block_k", [16, 1024])
+def test_flash_ref_p_dtype_bf16_rounds_p_only(causal, window, block_k):
+    """With ``p_dtype=torch.bfloat16`` (where the tensor-core kernels round P
+    and dS) on fp32 inputs, the output moves from the fp32 plain version by
+    a non-zero amount within 2^-8 x max|v| (P is a convex weight, each
+    rounded by at most 2^-9 of itself); lse does not move, and the
+    gradients move by a non-zero amount."""
+    rng = np.random.default_rng(29 + block_k + (window or 0))
+    (_, q), (_, k), (_, v) = _qkv(rng, 2, 40, 2, 4, 16, "float32")
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    kw = dict(causal=causal, window=window, block_k=block_k)
+    out, lse = flash_attention_ref(q, k, v, **kw)
+    out_p, lse_p = flash_attention_ref(q, k, v, p_dtype=torch.bfloat16, **kw)
+    assert out_p.dtype == torch.float32 and torch.equal(lse_p, lse)
+    err = (out_p - out).abs().max().item()
+    assert 0 < err <= 2.0**-8 * v.abs().max().item()
+    grads = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    grads_p = flash_attention_bwd_ref(q, k, v, out, lse, dout, p_dtype=torch.bfloat16, **kw)
+    for got, want in zip(grads_p, grads):
+        assert got.dtype == torch.float32
+        gerr = (got - want).abs().max().item()
+        assert 0 < gerr <= 2.0**-7 * want.abs().max().item()
+
+
+# The bf16 kernels' gate (``rounding_ratios``) at the statistics of the
+# training shape [2, 8192, 32/8, 80], window 4096: D 80, G 4, rows of up to
+# 4096 keys (batch and kv heads cut to 1, S to 4608).  A kernel is stood in
+# for by the plain version rounding where the bf16 kernels round (P and dS
+# to bf16, the kernel's key tile), its outputs rounded to bf16, with a fault
+# planted into it.
+GATE_B, GATE_S, GATE_G, GATE_D, GATE_W = 1, 4608, 4, 80, 4096
+ALL_GRADS = {"out", "dq", "dk", "dv"}
+# fault -> the outputs whose gate must fail
+GATE_FAULTS = {
+    "none": set(),
+    "window one key wider": ALL_GRADS,
+    "window one key narrower": ALL_GRADS,
+    "one 64-key tile skipped by one 128-row q tile": ALL_GRADS,
+    "dV without the diagonal key": {"dv"},
+    "dV with P left in fp32": set(),  # more exact than the kernel, not a fault
+}
+
+
+@functools.lru_cache(maxsize=1)
+def _gate_case():
+    rng = np.random.default_rng(41)
+    shapes = [(GATE_B, GATE_S, h, GATE_D) for h in (GATE_G, 1, 1, GATE_G)]
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                     .to(torch.bfloat16).float() for s in shapes)
+    kw = dict(causal=True, window=GATE_W)
+    kw_p = dict(kw, p_dtype=torch.bfloat16, block_k=kernel_key_tile(GATE_D))
+    ref, _ = flash_attention_ref(q, k, v, **kw)
+    ref_p, _ = flash_attention_ref(q, k, v, **kw_p)
+    out, lse = ref_p.to(torch.bfloat16), flash_attention_ref(q, k, v, **kw_p)[1]
+    grads = flash_attention_bwd_ref(q, k, v, out.float(), lse, dout, **kw)
+    grads_p = flash_attention_bwd_ref(q, k, v, out.float(), lse, dout, **kw_p)
+    return (q, k, v, dout, out, lse), dict(zip(["out", "dq", "dk", "dv"], zip(
+        (ref, *grads), (ref_p, *grads_p))))
+
+
+def _plant(fault, monkeypatch):
+    """The outputs of a bf16 kernel with ``fault``: out from the forward, dq,
+    dk and dv from the backward given the sound out and lse."""
+    from repro_torch.kernels.flash_attention import ref as ref_mod
+
+    (q, k, v, dout, out, lse), _ = _gate_case()
+    sound_mask = ref_mod._mask
+    window = GATE_W + {"window one key wider": 1, "window one key narrower": -1}.get(fault, 0)
+    if fault == "one 64-key tile skipped by one 128-row q tile":
+        p0, t0 = 3456, 1408  # a q tile in the bulk, a K tile well inside its window
+
+        def mask(sq, k0, k1, sk, causal, w, device):
+            qpos = torch.arange(sq, device=device)[:, None]
+            kpos = torch.arange(k0, k1, device=device)[None, :]
+            hole = (qpos >= p0) & (qpos < p0 + 128 // GATE_G) & (kpos >= t0) & (kpos < t0 + 64)
+            return sound_mask(sq, k0, k1, sk, causal, w, device) & ~hole
+
+        monkeypatch.setattr(ref_mod, "_mask", mask)
+    kw = dict(causal=True, window=window, p_dtype=torch.bfloat16, block_k=kernel_key_tile(GATE_D))
+    got = {"out": flash_attention_ref(q, k, v, **kw)[0]}
+    got.update(zip(["dq", "dk", "dv"], flash_attention_bwd_ref(q, k, v, out.float(), lse, dout, **kw)))
+    if fault == "dV without the diagonal key":
+        monkeypatch.setattr(ref_mod, "_mask", lambda sq, k0, k1, *a: sound_mask(sq, k0, k1, *a) & (
+            torch.arange(sq)[:, None] != torch.arange(k0, k1)[None, :]))
+        got["dv"] = flash_attention_bwd_ref(q, k, v, out.float(), lse, dout, **kw)[2]
+    elif fault == "dV with P left in fp32":
+        got["dv"] = flash_attention_bwd_ref(q, k, v, out.float(), lse, dout, **dict(kw, p_dtype=None))[2]
+    return {n: x.to(torch.bfloat16) for n, x in got.items()}
+
+
+@pytest.mark.parametrize("fault", list(GATE_FAULTS))
+def test_flash_bf16_gate_rejects_planted_faults(fault, monkeypatch):
+    """Each planted fault fails the gate on the outputs it reaches, by row or
+    by mean (the readings print with ``-s``), and the sound outputs pass."""
+    _, refs = _gate_case()
+    got = _plant(fault, monkeypatch)
+    failed = set()
+    for name, (ref, ref_p) in refs.items():
+        row, mean = rounding_ratios(got[name], ref, ref_p)
+        print(f"gate {fault!r} {name}: row ratio {row:.3f}, mean ratio {mean:.3f}")
+        if row > 1 or mean > 1:
+            failed.add(name)
+    assert failed == GATE_FAULTS[fault]

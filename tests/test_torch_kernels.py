@@ -130,3 +130,48 @@ def test_rmsnorm_rejects_bad_shapes():
         rmsnorm(torch.zeros(2, 8), torch.zeros(4))
     with pytest.raises(ValueError):
         rmsnorm(torch.zeros(2, 8), torch.zeros(8), residual=torch.zeros(3, 8))
+
+
+def test_library_path_hashes_every_file_under_csrc(tmp_path, monkeypatch):
+    """A header added or edited beside a source under ``csrc/`` names a new
+    library, so the next load rebuilds."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    src = build.KERNELS_DIR / build.SOURCES["flash_attention"]
+    csrc = tmp_path / src.relative_to(build.KERNELS_DIR).parent
+    csrc.mkdir(parents=True)
+    shutil.copy(src, csrc / src.name)
+    monkeypatch.setattr(build, "KERNELS_DIR", tmp_path)
+    alone = build.library_path("flash_attention")
+    assert alone == build.library_path("flash_attention")
+    (csrc / "tiles.cuh").write_text("#pragma once\n")
+    with_header = build.library_path("flash_attention")
+    (csrc / "tiles.cuh").write_text("#pragma once\nconstexpr int kTile = 64;\n")
+    edited = build.library_path("flash_attention")
+    assert len({alone, with_header, edited}) == 3
+    assert all(p.parent == build.BUILD_DIR for p in (alone, with_header, edited))
+
+
+def test_build_passes_csrc_as_include_dir(tmp_path, monkeypatch):
+    """nvcc is given ``-I`` the source's ``csrc/``, so that its headers are
+    found (nvcc itself is not run here)."""
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    seen = {}
+
+    def fake_run(cmd, **kw):
+        seen["cmd"] = cmd
+        return subprocess.CompletedProcess(cmd, 1, stdout="refused")
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", fake_run)
+    with pytest.raises(build.KernelBuildError):
+        build._build("flash_attention")
+    cmd = seen["cmd"]
+    csrc = (build.KERNELS_DIR / build.SOURCES["flash_attention"]).parent
+    assert cmd[cmd.index("-I") + 1] == str(csrc)
