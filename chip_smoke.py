@@ -15,7 +15,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 and timed beside the plain version, a PyTorch library call and
                 its bound (B1 also in TFLOP/s; B1 in bf16 rounds P and dS to
                 bf16, so it is held, row by row and in the mean, to twice the
-                error of the plain version that rounds at the same points);
+                error of the plain version that rounds at the same points).
+                B4 runs as five passes: each is also held against its own
+                plain version on the kernel's own inputs, and timed;
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -125,7 +127,8 @@ DECODE_CASES = [
 ]
 # SSD chunk scan: (label, B, S, H, P, N, G, dtype, initial state); the timed
 # cases are the mamba2 prefill and the phase 6 forwards, the edge cases are
-# only held against the plain version
+# only held against the plain version (the last one seeds the state pass and
+# walks the prefill's 128 chunks)
 SSD_CASES = [
     ("mamba2-370m prefill", 1, 32768, 32, 64, 128, 1, "float32", False),
     ("mamba2-370m forward", 4, 512, 32, 64, 128, 1, "float32", False),
@@ -136,6 +139,7 @@ SSD_EDGE_CASES = [
     ("G 2", 2, 512, 8, 64, 64, 2, "float32", False),
     ("initial state", 2, 512, 8, 64, 128, 1, "float32", True),
     ("bf16 inputs", 2, 512, 8, 64, 128, 1, "bfloat16", False),
+    ("initial state, 128 chunks", 1, 32768, 4, 64, 128, 1, "float32", True),
 ]
 SSD_CHUNK = 256
 
@@ -580,9 +584,31 @@ def rmsnorm_bwd_cases(torch, timer, gen):
     return cases
 
 
+def ssd_pass_checks(torch, ops, name, args, rtol):
+    """B4's passes one by one, each held against its plain version computed
+    from the kernel's own scratch as the pass found it, so that a fault
+    shows in the pass that makes it; returns (the workspace, the largest
+    error of each pass).  C B^T is compared on and below the diagonal, the
+    part the kernel computes."""
+    ws = ops.workspace(*args)
+    errs = {}
+    for p in ops.PASSES:
+        ops.run_pass(ws, p)
+        for field, ref in ops.plain_pass(ws, p).items():
+            out = getattr(ws, field)
+            if field == "cb":
+                out, ref = torch.tril(out), torch.tril(ref)
+            scale = max(1.0, ref.float().abs().max().item())
+            errs[f"{p}.{field}"] = check_close(f"{name} pass {p} ({field})", out, ref,
+                                               rtol if field == "y" else 1e-4, 1e-5 * scale)
+            del ref
+    sync(torch)
+    return ws, errs
+
+
 def ssd_cases(torch, timer, gen):
-    """B4 against its plain version at the paths' shapes and the edge cases;
-    returns the timed cases."""
+    """B4 against its plain version at the paths' shapes and the edge cases,
+    pass by pass and whole; returns the timed cases."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd_scan import ops
@@ -605,12 +631,15 @@ def ssd_cases(torch, timer, gen):
         state = rnd(b, h, p, n) if init else None
         q = min(SSD_CHUNK, s)
         name = f"ssd_scan {label} [{b},{s},{h},{p}] N={n} G={g} {dtype_name}"
-        y, final = ops.ssd(x, dA, B_, C_, SSD_CHUNK, state)
-        ref_y, ref_final = ssd_ref(x, dA, B_, C_, q, state)
-        sync(torch)
         # y sums up to Q terms and the state Q per chunk, in another order
         # than the plain version: absolute term 1e-5 x the largest value
         rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
+        ws, pass_errs = ssd_pass_checks(torch, ops, name, (x, dA, B_, C_, SSD_CHUNK, state), rtol)
+        log(f"kernels: {name} passes max|err| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in pass_errs.items()))
+        y, final = ops.ssd(x, dA, B_, C_, SSD_CHUNK, state)
+        ref_y, ref_final = ssd_ref(x, dA, B_, C_, q, state)
+        sync(torch)
         err = max(
             check_close(name, y, ref_y, rtol, 1e-5 * max(1.0, ref_y.float().abs().max().item())),
             check_close(name + " state", final, ref_final, 1e-4,
@@ -618,9 +647,12 @@ def ssd_cases(torch, timer, gen):
         del y, final, ref_y, ref_final
         if label not in timed:
             log(f"kernels: {name} max|err| {err:.2e} (rtol {rtol:.3g}, atol 1e-5 x max|ref|)")
+            del ws
             continue
         ms = timer(lambda: ops.ssd(x, dA, B_, C_, SSD_CHUNK, state))
         plain = timer(lambda: ssd_ref(x, dA, B_, C_, q, state))
+        passes_ms = {pn: timer(lambda pn=pn: ops.run_pass(ws, pn)) for pn in ops.PASSES}
+        del ws
         # the work the function needs: C B^T once per (b, chunk, group) and
         # (L o S) X per (b, h, chunk), both on the lower triangle only (Q(Q+1)/2
         # pairs); per (b, h, chunk) the state term C state^T (none in the first
@@ -635,16 +667,22 @@ def ssd_cases(torch, timer, gen):
                    + b * s * h * 4  # dA
                    + 2 * b * s * g * n * item  # B, C in their group layout
                    + b * h * p * n * 4 * (2 if init else 1))  # final (and initial) state
-        bound, by = bound_ms(n_bytes, flops, FP32_FLOPS)
-        tf32 = max(n_bytes / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3
+        # the kernel's products run in 3xTF32, three TF32 products for each
+        # fp32 one: its bound is that work at the TF32 peak; the same work
+        # on the fp32 CUDA cores is logged beside it
+        bound, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
+        fp32_bound = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
         cases.append(dict(case=label, B=b, S=s, H=h, P=p, N=n, G=g, dtype=dtype_name,
-                          flops=flops, tpu_flops=tpu_flops, bytes=n_bytes, ms=ms, plain_ms=plain, library_ms=None,
-                          bound_ms=bound, bound_by=by, tf32_bound_ms=tf32, max_abs_err=err))
+                          flops=flops, tpu_flops=tpu_flops, bytes=n_bytes, ms=ms, plain_ms=plain,
+                          library_ms=None, bound_ms=bound, bound_by=by,
+                          fp32_bound_ms=fp32_bound, passes_ms=passes_ms,
+                          pass_max_abs_err=pass_errs, max_abs_err=err))
         log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, no library call, bound "
-            f"{bound:.4f} by {by} at the fp32 peak, {tf32:.4f} at the TF32 peak; "
+            f"{bound:.4f} by {by} in 3xTF32, {fp32_bound:.4f} on the fp32 CUDA cores; "
             f"{flops / 1e9:.4g} GFLOP ({tpu_flops / 1e9:.4g} as the TPU kernel counts), "
             f"{n_bytes / 1e6:.4g} MB), max|err| {err:.2e} "
-            f"(rtol {rtol:.3g}, atol 1e-5 x max|ref|)")
+            f"(rtol {rtol:.3g}, atol 1e-5 x max|ref|); passes "
+            + ", ".join(f"{k} {v:.4f}" for k, v in passes_ms.items()) + " ms")
         del x, dA, B_, C_, state
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
@@ -1141,7 +1179,7 @@ def phase_profile_prefill(torch, run):
         run()
         sync(torch)
         wall = time.perf_counter() - t0
-    groups, total = {}, 0.0
+    groups, passes, total = {}, {}, 0.0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1152,6 +1190,8 @@ def phase_profile_prefill(torch, run):
         low = ev.key.lower()
         if "ssd_scan" in low:
             g = "B4 ssd_scan (CUDA)"
+            kernel = low.split("ssd_scan_", 1)[1].split("_kernel", 1)[0]
+            passes[kernel] = passes.get(kernel, 0.0) + t
         elif "rmsnorm" in low:
             g = "B3a rmsnorm (Triton)"
         elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")):
@@ -1166,6 +1206,8 @@ def phase_profile_prefill(torch, run):
         f"({100 * total / 1e6 / wall:.1f} %)")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1])[:10]:
         log(f"profile prefill:   {t / 1e3:9.3f} ms  {g}")
+    for kernel, t in sorted(passes.items(), key=lambda kv: -kv[1]):
+        log(f"profile prefill:     {t / 1e3:9.3f} ms  B4 pass {kernel}")
 
 
 # ------------------------------------------------------------ main

@@ -94,7 +94,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
                    ("zamba2-1.2b forward", 2, 32, 4, 16, 8, 1, "float32", False)],
         SSD_EDGE_CASES=[("S < chunk", 1, 10, 4, 16, 16, 1, "float32", False),
                         ("G 2", 1, 32, 4, 16, 8, 2, "float32", True),
-                        ("bf16 inputs", 1, 32, 4, 16, 8, 1, "bfloat16", False)],
+                        ("bf16 inputs", 1, 32, 4, 16, 8, 1, "bfloat16", False),
+                        ("initial state, 128 chunks", 1, 64, 4, 16, 16, 1, "float32", True)],
         SSD_CHUNK=16, SSM_MODELS=("tiny-mamba", "tiny-zamba"), SSM_PROMPT_LEN=25,
         SSM_NEW_TOKENS=8, SSM_MAX_LEN=32, SSM_BATCH=2, SSM_CHECK_POSITIONS=(0, 15, 16, 31),
         PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,

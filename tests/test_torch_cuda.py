@@ -294,7 +294,8 @@ def test_train_step_on_card_runs_no_plain_version(cuda, monkeypatch):
 
 # SSD chunk scan: (B, S, H, P, N, G, dtype, initial state) -- chip_smoke's
 # phase 3 shapes (the mamba2-370m prefill and the two models' forwards) and
-# its edge cases: S < chunk, G 2, an initial state, bf16 inputs
+# its edge cases: S < chunk, G 2, an initial state, bf16 inputs, and an
+# initial state carried across the prefill's 128 chunks
 SSD_CASES = [
     (1, 32768, 32, 64, 128, 1, torch.float32, False),
     (4, 512, 32, 64, 128, 1, torch.float32, False),
@@ -303,18 +304,12 @@ SSD_CASES = [
     (2, 512, 8, 64, 64, 2, torch.float32, False),
     (2, 512, 8, 64, 128, 1, torch.float32, True),
     (2, 512, 8, 64, 128, 1, torch.bfloat16, False),
+    (1, 32768, 4, 64, 128, 1, torch.float32, True),
 ]
 
 
-@pytest.mark.parametrize("b,s,h,p,n,g,dtype,init", SSD_CASES)
-def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, g, dtype, init):
-    """y within one bf16 ulp (bf16) or 1e-4 relative (fp32), and the fp32
-    final state within 1e-4 relative, each plus 1e-5 x the largest value:
-    y and the state sum up to a chunk of terms in another order."""
+def _ssd_inputs(cuda, b, s, h, p, n, g, dtype, init):
     import torch.nn.functional as F
-
-    from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
     gen = torch.Generator(device=cuda).manual_seed(s + h + n + g)
     x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
@@ -323,12 +318,60 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, g, dtype, init):
     bc = (torch.randn(b, s, 2 * g * n, generator=gen, device=cuda) * 0.5).to(dtype)
     B_, C_ = bc[..., : g * n].view(b, s, g, n), bc[..., g * n :].view(b, s, g, n)
     state = torch.randn(b, h, p, n, generator=gen, device=cuda) if init else None
+    return x, dA, B_, C_, state
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,dtype,init", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, g, dtype, init):
+    """y within one bf16 ulp (bf16) or 1e-4 relative (fp32), and the fp32
+    final state within 1e-4 relative, each plus 1e-5 x the largest value:
+    y and the state sum up to a chunk of terms in another order."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    x, dA, B_, C_, state = _ssd_inputs(cuda, b, s, h, p, n, g, dtype, init)
     before = ops.ssd.launches
     y, final = ops.ssd(x, dA, B_, C_, 256, state)
     ref_y, ref_final = ssd_ref(x, dA, B_, C_, min(256, s), state)
     torch.cuda.synchronize()
     assert ops.ssd.launches == before + 1
     assert y.dtype == dtype and y.shape == x.shape and final.dtype == torch.float32
+    _close_grad(y, ref_y, dtype)
+    _close_grad(final, ref_final, torch.float32)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,dtype,init", SSD_CASES)
+def test_ssd_kernel_passes_match_plain(cuda, b, s, h, p, n, g, dtype, init):
+    """Each of B4's five passes against its plain version computed from the
+    kernel's own scratch as the pass found it, with y's and the state's
+    tolerance; C B^T on and below the diagonal, where the kernel computes it."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    x, dA, B_, C_, state = _ssd_inputs(cuda, b, s, h, p, n, g, dtype, init)
+    ws = ops.workspace(x, dA, B_, C_, 256, state)
+    for name in ops.PASSES:
+        ops.run_pass(ws, name)
+        for field, ref in ops.plain_pass(ws, name).items():
+            out = getattr(ws, field)
+            if field == "cb":
+                out, ref = torch.tril(out), torch.tril(ref)
+            _close_grad(out, ref, dtype if field == "y" else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_unaligned_rows_match_plain(cuda, dtype):
+    """x as a view whose rows lie 65 elements apart, so that the kernel
+    copies its tiles element by element instead of 16 bytes at a time; a
+    ragged chunk of 100 and an initial state."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    x, dA, B_, C_, state = _ssd_inputs(cuda, 2, 300, 4, 64, 128, 1, dtype, True)
+    x = torch.cat([x, x[..., :1]], dim=3)[..., :64]
+    assert not ops._aligned(x)
+    y, final = ops.ssd(x, dA, B_, C_, 100, state)
+    ref_y, ref_final = ssd_ref(x, dA, B_, C_, 100, state)
+    torch.cuda.synchronize()
     _close_grad(y, ref_y, dtype)
     _close_grad(final, ref_final, torch.float32)
 

@@ -4,6 +4,11 @@ tensors, i.e. its plain version, against the JAX package's Pallas ``ssd``
 made with numpy.  The port takes B and C in their group layout; JAX is given
 them repeated to the heads.
 
+The kernel runs as five passes over scratch in its own layouts; their plain
+versions (``ref.ssd_*_ref``, run by ``ops.run_pass`` on CPU tensors) are held
+composed against ``ssd_ref`` and both JAX functions, which checks the
+layouts and the seeding of the state pass.
+
 Tolerances (``_maxerr``: max error over max(1, max |ref|)), as the JAX
 package's own kernel tests use: 1e-4 in fp32, 5e-2 with bf16 inputs."""
 
@@ -15,7 +20,9 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.ssd_scan import ssd as jax_ssd
 from repro.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -79,6 +86,65 @@ def test_ssd_matches_pallas_kernel_and_ssd_chunked(b, nc, h, p, n, chunk, dtype)
     for ref_y, ref_st in ((yk, stk), (yr, str_)):
         assert _maxerr(_f32(y), _f32(ref_y)) < TOL[dtype]
         assert _maxerr(_f32(st), _f32(ref_st)) < TOL[dtype]
+
+
+def _through_passes(x, dA, B, C, chunk, initial_state=None):
+    """y and the final state from the plain versions of the kernel's five
+    passes, each reading what the passes before it wrote."""
+    ws = ssd_ops.workspace(x, dA, B, C, chunk, initial_state)
+    ws.cb.fill_(float("nan"))  # above the diagonal no pass may read C B^T
+    for name in ssd_ops.PASSES:
+        ssd_ops.run_pass(ws, name)
+    return ws.y, ws.final
+
+
+# the five sizes above (G 1, no initial state), then an initial state, then G 2
+@pytest.mark.parametrize(
+    "b,nc,h,p,n,chunk,dtype,g,init",
+    [
+        (1, 1, 1, 32, 16, 16, "float32", 1, False),
+        (2, 4, 4, 64, 64, 16, "float32", 1, False),
+        (1, 2, 4, 32, 64, 64, "float32", 1, False),
+        (2, 3, 1, 64, 16, 64, "bfloat16", 1, False),
+        (1, 4, 4, 32, 16, 16, "bfloat16", 1, False),
+        (2, 3, 2, 32, 32, 32, "float32", 1, True),
+        (2, 2, 4, 32, 16, 32, "float32", 2, False),
+    ],
+)
+def test_passes_compose_to_ssd_ref_pallas_kernel_and_ssd_chunked(b, nc, h, p, n, chunk, dtype, g,
+                                                                 init):
+    s = nc * chunk
+    x, da, bg, cg = _inputs(s + h + p + g, b, s, h, p, g, n)
+    st0 = np.random.default_rng(s).standard_normal((b, h, p, n)).astype(np.float32) if init else None
+    st0_t = _torch(st0) if init else None
+    xt, bt, ct = _torch(x, dtype), _torch(bg, dtype), _torch(cg, dtype)
+    y, st = _through_passes(xt, _torch(da), bt, ct, chunk, st0_t)
+    assert y.dtype == TORCH[dtype] and y.shape == (b, s, h, p)
+    assert st.dtype == torch.float32 and st.shape == (b, h, p, n)
+    yr, str_ = ssd_ref(xt, _torch(da), bt, ct, chunk, st0_t)
+    assert _maxerr(_f32(y), _f32(yr)) < TOL[dtype]
+    assert _maxerr(_f32(st), _f32(str_)) < TOL[dtype]
+    bh, ch = np.repeat(bg, h // g, axis=2), np.repeat(cg, h // g, axis=2)
+    init_j = _jax(st0) if init else None
+    yk, stk = jax_ssd(_jax(x, dtype), _jax(da), _jax(bh, dtype), _jax(ch, dtype), chunk=chunk,
+                      initial_state=init_j)
+    yc, stc = ssd_chunked(
+        _jax(_f32(_jax(x, dtype))), _jax(da), _jax(_f32(_jax(bh, dtype))),
+        _jax(_f32(_jax(ch, dtype))), chunk, initial_state=init_j,
+    )
+    for ref_y, ref_st in ((yk, stk), (yc, stc)):
+        assert _maxerr(_f32(y), _f32(ref_y)) < TOL[dtype]
+        assert _maxerr(_f32(st), _f32(ref_st)) < TOL[dtype]
+
+
+def test_pass_names_are_checked():
+    x, da, bg, cg = _inputs(4, 1, 32, 2, 16, 1, 16)
+    ws = ssd_ops.workspace(_torch(x), _torch(da), _torch(bg), _torch(cg), 16)
+    assert ws.cb.shape == (1, 2, 1, 16, 16) and ws.cum.shape == (1, 2, 2, 16)
+    with pytest.raises(ValueError, match="no pass"):
+        ssd_ops.run_pass(ws, "scan")
+    with pytest.raises(ValueError, match="no pass"):
+        ssd_ops.plain_pass(ws, "scan")
 
 
 def test_group_layout_matches_repeated_heads():
