@@ -17,7 +17,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 bf16, so it is held, row by row and in the mean, to twice the
                 error of the plain version that rounds at the same points).
                 B4 runs as five passes: each is also held against its own
-                plain version on the kernel's own inputs, and timed;
+                plain version on the kernel's own inputs, and timed.  B2
+                logs its split plan (blocks a cluster, slots a block) and
+                torch.profiler must see one call run exactly one kernel;
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -105,13 +107,14 @@ FLASH_FP32_CASES = [
 # RMSNorm forward: (rows, D).  gemma3-1b's width (4 rows: a decode step at
 # batch 4), then phase 6's: mamba2-370m's d_model 1024 and gate norm 2048,
 # zamba2-1.2b's d_model 2048 and gate norm 4096, at a decode step (4 rows), a
-# forward of 4 x 511 tokens (2044) and the mamba2 prefill (32768).  Triton
-# builds one program for each width.  The residual variant runs on no path:
-# it is held at gemma3-1b's width only
+# forward of 4 x 511 tokens (2044) and the mamba2 prefill (32768); last,
+# h2o-danube-1.8b's training batch (2 x 8192 rows of 2560).  Triton builds
+# one program for each width.  The residual variant runs on no path: it is
+# held at gemma3-1b's width only
 RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
                  (4, 1024), (2044, 1024), (32768, 1024),
                  (4, 2048), (2044, 2048), (32768, 2048),
-                 (4, 4096), (2044, 4096)]
+                 (4, 4096), (2044, 4096), (16384, 2560)]
 RMSNORM_RESIDUAL_CASES = [(4, 1152), (8, 1152), (4096, 1152)]
 # RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
 # step's, 2176 x 1152 gemma3-1b's forward
@@ -328,6 +331,27 @@ def read_counts() -> dict:
 
 
 # ------------------------------------------------------------ phase 3
+def device_kernels(torch, fn) -> list:
+    """The names of the device kernels that one call of ``fn`` runs, as
+    torch.profiler records them (memory copies and fills count too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(torch)
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def decode_plan(torch, ops, b, hkv, sk, d, g) -> dict:
+    """B2's launch for a call: its split plan, and how many clusters of it
+    the card holds at once with each block's shared memory (bf16)."""
+    n_split, split_len = ops.split_plan(b, hkv, sk, ops.device_sms(torch.device(DEVICE)))
+    clusters, smem = ops.occupancy(torch.bfloat16, d, g, n_split)
+    return dict(n_split=n_split, split_len=split_len, max_active_clusters=clusters,
+                smem_bytes=smem)
+
+
 def decode_cases(torch, timer, gen):
     import torch.nn.functional as F
 
@@ -336,6 +360,11 @@ def decode_cases(torch, timer, gen):
 
     cases = []
     for label, b, sk, hq, hkv, d, window, pos in DECODE_CASES:
+        plan = decode_plan(torch, ops, b, hkv, sk, d, hq // hkv)
+        log(f"kernels: decode_attention {label} B={b} Sk={sk} {hq}/{hkv}x{d}: split plan "
+            f"n_split {plan['n_split']} (a cluster of {plan['n_split']} blocks) x split_len "
+            f"{plan['split_len']}; {plan['max_active_clusters']} such clusters fit at once, "
+            f"{plan['smem_bytes']} bytes of shared memory a block (bf16)")
         for dtype in (torch.bfloat16, torch.float32):
             def rnd(*shape):
                 return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
@@ -359,6 +388,11 @@ def decode_cases(torch, timer, gen):
                 valid &= dpos < window
             n_valid = int(valid.sum())
             mask = valid[:, None, None, :]
+            names = device_kernels(torch, lambda: ops.decode_attention(
+                q, k, v, pos_q, pos_k, window=window))
+            if len(names) != 1 or "decode_attention_kernel" not in names[0]:
+                raise AssertionError(f"{name}: one call ran the device kernels {names}, "
+                                     "not the one decode_attention_kernel")
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             ms = timer(lambda: ops.decode_attention(q, k, v, pos_q, pos_k, window=window))
             plain = timer(lambda: decode_attention_ref(q[:, 0], k, v, pos_q, pos_k, window=window))
@@ -370,7 +404,7 @@ def decode_cases(torch, timer, gen):
             flops = 4 * n_valid * hq * d
             bound, by = bound_ms(n_bytes, flops, BF16_FLOPS)
             cases.append(dict(case=label, B=b, Sk=sk, Hq=hq, Hkv=hkv, D=d, window=window,
-                              pos=pos, dtype="bfloat16",
+                              pos=pos, dtype="bfloat16", plan=plan, device_kernels=names,
                               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                               bound_by=by, max_abs_err=err))
             log(f"kernels: {name} bf16 window={window} pos={pos}: "
@@ -826,7 +860,7 @@ def phase_profile(torch, engine, cache, seq):
         total += t
         launches += ev.count
         name = ev.key
-        if "decode_partial" in name or "decode_merge" in name:
+        if "decode_attention_kernel" in name:
             g = "decode_attention kernel"
         elif "rmsnorm_kernel" in name:
             g = "rmsnorm kernel"

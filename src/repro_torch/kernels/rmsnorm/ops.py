@@ -19,12 +19,51 @@ from .ref import rmsnorm_bwd_ref, rmsnorm_ref, rmsnorm_residual_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 16384
-#: programs per SM of the backward's first pass (each owns a run of rows)
-BWD_PROGRAMS_PER_SM = 4
+#: a forward program's tile: rows holding about FWD_TILE_ELEMS elements, at
+#: most FWD_MAX_ROWS, and no more than leave two programs an SM to run; four
+#: warps for up to 8192 elements (the widths' best on the H100, measured by
+#: tools/time_port_kernels.py --sweep)
+FWD_TILE_ELEMS = 8192
+FWD_MAX_ROWS = 4
+#: the backward's first pass: (rows a tile, warps, pipeline stages of its
+#: row loop, programs an SM), each program walking a run of whole tiles
+BWD_ROWS, BWD_WARPS, BWD_STAGES, BWD_PROGRAMS_PER_SM = 2, 4, 4, 1
 
 
-def _block_d(d: int) -> int:
-    return 1 << max(d - 1, 1).bit_length()
+def _blocks(d: int) -> Tuple[int, int]:
+    """(BLOCK_A, BLOCK_B): a row of D as the largest power of two <= D plus
+    the rest rounded up to a power of two (0 when D is a power of two)."""
+    a = 1 << (max(d, 1).bit_length() - 1)
+    rest = d - a
+    return a, (1 << (rest - 1).bit_length()) if rest else 0
+
+
+def _pow2_floor(n: float) -> int:
+    return 1 << max(int(n), 1).bit_length() - 1
+
+
+def _row_block(d: int) -> Tuple[int, int]:
+    """(BLOCK_A, num_warps) of a call of fewer rows than two an SM (a decode
+    step), bound by latency: one row a program, as one masked block of the
+    next power of two and a warp per 256 columns, so a row reduces once."""
+    block = 1 << max(d - 1, 1).bit_length()
+    return block, min(max(block // 256, 1), 16)
+
+
+def _fwd_launch(rows: int, d: int, sms: int) -> Tuple[int, int, int, int]:
+    """(ROWS, BLOCK_A, BLOCK_B, num_warps) of a forward program: a tile of
+    rows in two column blocks, or one row (``_row_block``) for few rows."""
+    if rows < 2 * sms:
+        block, warps = _row_block(d)
+        return 1, block, 0, warps
+    a, bb = _blocks(d)
+    tile = min(_pow2_floor(FWD_TILE_ELEMS / (a + bb)), FWD_MAX_ROWS,
+               _pow2_floor(rows / (2 * sms)))
+    return tile, a, bb, max(4, min(16, _pow2_floor(tile * (a + bb) / 2048)))
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x, w, residual):
@@ -56,15 +95,15 @@ def _launch(x, w, eps, residual):
     out = torch.empty_like(x2)
     res_out = torch.empty_like(x2) if residual is not None else out
     r2 = residual.view(-1, d) if residual is not None else x2
-    block_d = _block_d(d)
+    tile, block_a, block_b, warps = _fwd_launch(rows, d, _sms(x.device))
     if rows:
-        kernel.rmsnorm_kernel[(rows,)](
+        kernel.rmsnorm_kernel[(-(-rows // tile),)](
             x2, r2, w, out, res_out,
             x2.stride(0), r2.stride(0), out.stride(0), res_out.stride(0),
-            d, eps,
+            rows, d, eps,
             HAS_RESIDUAL=residual is not None,
-            BLOCK_D=block_d,
-            num_warps=min(max(block_d // 256, 1), 16),
+            ROWS=tile, BLOCK_A=block_a, BLOCK_B=block_b,
+            num_warps=warps,
         )
         if residual is None:
             rmsnorm.launches += 1
@@ -87,19 +126,26 @@ def _launch_bwd(dy, x, w, eps):
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_prog = max(1, min(rows, BWD_PROGRAMS_PER_SM * sms))
-    per_prog = -(-rows // n_prog) if rows else 1
+    # each program owns a run of whole tiles; fewer rows than two an SM take
+    # one row a program (``_row_block``) and no pipeline
+    sms = _sms(x.device)
+    if rows >= 2 * sms:
+        tile, stages, warps = BWD_ROWS, BWD_STAGES, BWD_WARPS
+        block_a, block_b = _blocks(d)
+    else:
+        tile, stages, block_b = 1, 1, 0
+        block_a, warps = _row_block(d)
+    n_prog = max(1, min(-(-rows // tile), BWD_PROGRAMS_PER_SM * sms))
+    per_prog = tile * -(-rows // (tile * n_prog)) if rows else tile
     n_prog = -(-rows // per_prog) if rows else 1
     part = torch.empty((n_prog, d), dtype=torch.float32, device=x.device)
-    block_d = _block_d(d)
     if rows:
         kernel.rmsnorm_bwd_kernel[(n_prog,)](
             x2, w, dy2, dx, part,
             x2.stride(0), dy2.stride(0), dx.stride(0),
             rows, per_prog, d, eps,
-            BLOCK_D=block_d,
-            num_warps=min(max(block_d // 256, 1), 16),
+            ROWS=tile, BLOCK_A=block_a, BLOCK_B=block_b, STAGES=stages,
+            num_warps=warps,
         )
     else:
         part.zero_()

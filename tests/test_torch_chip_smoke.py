@@ -101,6 +101,11 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
         phase_build=lambda torch: None,
+        # no profiler trace of a card here: run the call and name the kernel
+        device_kernels=lambda torch, fn: (fn(), ["decode_attention_kernel"])[1],
+        decode_plan=lambda torch, ops, b, hkv, sk, d, g: dict(
+            zip(("n_split", "split_len"), ops.split_plan(b, hkv, sk, 132)),
+            max_active_clusters=1, smem_bytes=0),
     ).items():
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
@@ -157,6 +162,11 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert ssm == 1 * 2 * (25 + 8 - 1)  # tiny-zamba's shared attention, bf16 and fp32 decode
     assert kernels["flash_attention"]["launches_by_path"]["ssm"] == 2
     assert kernels["ssd_scan"]["library_ms"] is None
+    # B2's cases: one device kernel a call, and the main path's split plans
+    dec = kernels["decode_attention"]["cases"]
+    assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
+    assert [(c["plan"]["n_split"], c["plan"]["split_len"]) for c in dec] == [
+        (16, 32), (16, 32), (16, 64), (16, 64), (2, 256)]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",
             "launches_by_path"}

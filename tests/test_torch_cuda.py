@@ -79,6 +79,97 @@ def test_decode_kernel_rejects_what_it_has_no_instance_for(cuda):
         ops.decode_attention(q, k, k, pos_q.long(), pos_k)
 
 
+# (label, B, Hkv, G, D, Sk, query position, the split plan on a 132-SM H100)
+DECODE_PLANS = [
+    ("n_split 1, two position windows", 5, 32, 1, 64, 1500, 1700, (1, 1500)),
+    ("largest cluster, empty splits", 1, 1, 4, 256, 1024, 543, (16, 64)),
+    ("Sk no multiple of split_len", 2, 1, 8, 128, 1000, 1333, (16, 63)),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_PLANS, ids=[c[0] for c in DECODE_PLANS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_split_plans(cuda, case, dtype):
+    """One cluster per (batch, kv head) at the plan's extremes, over a ring
+    cache whose slot positions are one row broadcast (batch stride 0); with
+    more than one row, the last one's query position precedes every slot,
+    so it keeps nothing and gives 0."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    _, b, hkv, g, d, sk, p, plan = case
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert ops.split_plan(b, hkv, sk, sms) == plan
+    n_split, _ = ops.split_plan(b, hkv, sk, sms)
+    assert ops.occupancy(dtype, d, g, n_split)[0] >= 1
+    gen = torch.Generator(device=cuda).manual_seed(sk + g)
+    q = torch.randn(b, 1, hkv * g, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype)
+    slots = torch.arange(sk, device=cuda, dtype=torch.int32)
+    pos_k = (p - torch.remainder(p - slots, sk))[None].expand(b, sk)
+    pos = torch.full((b,), p, device=cuda, dtype=torch.int32)
+    if b > 1:
+        pos[-1] = -1
+    for window in (None, sk // 2):
+        before = ops.decode_attention.launches
+        out = ops.decode_attention(q, k, v, pos, pos_k, window=window)
+        ref = decode_attention_ref(q[:, 0], k, v, pos, pos_k, window=window)[:, None]
+        torch.cuda.synchronize()
+        assert ops.decode_attention.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        _close(out, ref, dtype)
+        if b > 1:
+            assert bool((out[-1] == 0).all())
+
+
+def test_decode_kernel_is_one_device_kernel(cuda):
+    """A call launches one kernel and nothing else: no scratch, no merge."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import ops
+
+    b, sk, hkv, g, d = 4, 1024, 1, 4, 256
+    q = torch.randn(b, 1, hkv * g, d, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(b, sk, hkv, d, device=cuda, dtype=torch.bfloat16)
+    pos_q = torch.full((b,), 543, device=cuda, dtype=torch.int32)
+    pos_k = torch.arange(sk, device=cuda, dtype=torch.int32)[None].expand(b, sk)
+    ops.decode_attention(q, k, k, pos_q, pos_k)  # build and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.decode_attention(q, k, k, pos_q, pos_k)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "decode_attention_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernels_at_train_width_with_a_ragged_tile(cuda, dtype):
+    """The training width, forward and backward, with a row count that is no
+    multiple of a program's tile of rows."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+
+    rows, d = 16383, 2560  # odd: no multiple of any tile of 2 or more rows
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ops._fwd_launch(rows, d, sms)[0] > 1
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = (torch.randn(rows, d, generator=gen, device=cuda) * 3).to(dtype)
+    w = (torch.randn(d, generator=gen, device=cuda) * 0.1).to(dtype)
+    dy = torch.randn(rows, d, generator=gen, device=cuda).to(dtype)
+    before = (ops.rmsnorm.launches, ops.rmsnorm.backward_launches)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = ops.rmsnorm(xg, wg)
+    dx, dw = torch.autograd.grad(out, (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert (ops.rmsnorm.launches, ops.rmsnorm.backward_launches) == (before[0] + 1, before[1] + 1)
+    _close(out, rmsnorm_ref(x, w), dtype)
+    dx_ref, dw_ref = rmsnorm_bwd_ref(dy, x, w)
+    _close_grad(dx, dx_ref, dtype)
+    _close_grad(dw, dw_ref, dtype)
+
+
 @pytest.mark.parametrize("rows,d", [(1, 64), (5, 1152), (7, 1024), (1022, 2048), (33, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_residual", [False, True])
