@@ -42,7 +42,22 @@ Phases, each of which must pass (any failure exits non-zero):
                 boundary; layer 0's final SSM state against the engine's; then
                 a 32768-token prefill of mamba2-370m (``forward(last_only=
                 True)``).  Launch counters prove every path's kernels ran;
-  7. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+  7. pilot   -- the Pilot-Data runtime on the card (one Session, two pods,
+                two sim:// pilots, two mem:// Pilot-Data): h2o-
+                danube-1.8b, at every width but cut to PILOT_TRAIN_LAYERS
+                layers so that the host holds its checkpoint chain, trained by
+                PilotTrainer as two train_chunk CUs of two steps (phase 5's
+                batch and schedule), each restoring ckpt_{i-1} from a DU,
+                streaming its shard DU and writing ckpt_i; each CU's launches
+                must be the train step's times its steps, the last
+                checkpoint's step 4, and an eval on one fixed batch lower with
+                it than with ckpt_0.  Then gemma3-1b's weights saved once as a
+                checkpoint DU and decoded by two serve CUs at once
+                (DecodeEngine.from_cu_context), whose tokens must equal each
+                other's and a direct engine's.  Every plain version raises
+                while the CUs run.  CU times are broken down (queue, stage-in,
+                restore, step loop, encode and write, publish);
+  8. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
 served model), of one train step and of one mamba2-370m prefill.
@@ -53,8 +68,11 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -90,6 +108,24 @@ STATE_TOL = 2e-2  # max |engine state - forward state| over max(1, max |forward 
 # 0.180 zamba2-1.2b; means 1.44e-2 and 9.78e-3), so a gross fault still fails
 SSM_BF16_LOGIT_TOL, SSM_BF16_LOGIT_MEAN_TOL = 0.3, 3e-2
 PREFILL_MODEL, PREFILL_LEN = "mamba2-370m", 32768  # prefill_32k's length at batch 1
+
+# phase 7: TRAIN_MODEL through PilotTrainer's train_chunk CUs (phase 5's batch,
+# learning rate and schedule), two CUs of two steps and three checkpoint DUs;
+# then MODEL through two serve CUs on the first tokens of phase 4's prompts
+PILOT_STEPS, PILOT_CHUNK_STEPS = 4, 2
+# The runtime holds a checkpoint DU up to seven times over in host memory at
+# the chain's peak: each DU's staging buffer, ckpt_0's Pilot-Data (mem://),
+# the pilot sandboxes (mem://) that a CU's output is sealed into and that the
+# next CU may stage it into, and the seal's pass over the joined file stream.
+# At 24 layers a checkpoint is 25.6 GB (bf16 params, fp32 m, v and masters),
+# seven of which do not fit the ~103 GB of one H100 host; 8 layers (10.1 GB)
+# do.  The cut is of depth only: every width is h2o-danube-1.8b's.  The
+# Pilot-Data are mem://: on a sharedfs:// one each 64 KiB chunk of a DU is a
+# file, and a 12 GB checkpoint took 210 s to write and 95 s to read back.
+PILOT_TRAIN_LAYERS = 8
+PILOT_HOST_COPIES = 7
+PILOT_SERVE_PROMPT_LEN, PILOT_SERVE_NEW_TOKENS, PILOT_SERVE_MAX_LEN = 16, 8, 64
+PILOT_TIMEOUT_S = 900.0
 
 # phase 3 shapes.  Flash attention: (label, B, S, Hq, Hkv, D, causal, window);
 # the first is the training path's, the others gemma3-1b's teacher-forced
@@ -1244,6 +1280,364 @@ def phase_profile_prefill(torch, run):
         log(f"profile prefill:     {t / 1e3:9.3f} ms  B4 pass {kernel}")
 
 
+# ------------------------------------------------------------ phase 7
+def host_available_bytes() -> int:
+    """MemAvailable of /proc/meminfo."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+class HostPeak:
+    """Peak resident set of this process, sampled every 10 ms by a thread
+    between ``with`` entry and exit."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    @staticmethod
+    def resident() -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self) -> None:
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.resident())
+            self._stop.wait(0.01)
+
+    def __enter__(self):
+        self.start = self.resident()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+@contextlib.contextmanager
+def plain_versions_forbidden():
+    """While on, every kernel wrapper's plain version raises: a path run
+    inside it went through the kernels or failed."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    names = [(dec_ops, "decode_attention_ref"), (fa_ops, "flash_attention_ref"),
+             (fa_ops, "flash_attention_bwd_ref"), (norm_ops, "rmsnorm_ref"),
+             (norm_ops, "rmsnorm_bwd_ref"), (norm_ops, "rmsnorm_residual_ref"),
+             (ssd_ops, "ssd_ref")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+
+    def refuse(name):
+        def call(*a, **k):
+            raise AssertionError(f"plain version {name} ran on the pilot path")
+        return call
+
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def pilot_fleet(tag: str):
+    """A Session on two pods of one host each, as examples/pilot_train.py
+    builds it: a Pilot-Data (host memory, see PILOT_TRAIN_LAYERS) and a
+    one-slot pilot in each pod.  The fault manager stays off: checkpoints
+    keep one replica."""
+    from repro_torch.core import Session, make_tpu_fleet_topology
+
+    topo, _ = make_tpu_fleet_topology(pods=2, hosts_per_pod=1)
+    with Session(topology=topo) as s:
+        for pod in (0, 1):
+            s.start_pilot_data(service_url=f"mem://cluster:pod{pod}/{tag}{pod}",
+                               affinity=f"cluster:pod{pod}")
+        pilots = [s.start_pilot(resource_url=f"sim://cluster:pod{pod}:host0", slots=1)
+                  for pod in (0, 1)]
+        for p in pilots:
+            p.wait_active()
+        yield s
+
+
+def released(*args, **kwargs):
+    raise RuntimeError("this executable's run is over and its state released")
+
+
+def du_file(session, fut, rel: str) -> bytes:
+    """A file of a sealed DU, read from its first replica."""
+    du = session.ctx.lookup(fut.id)
+    return session.ctx.lookup(du.locations[0]).fetch_du_file(du.id, rel)
+
+
+def du_params(session, fut, device):
+    """The ``params/`` leaves of a checkpoint DU on ``device``."""
+    from repro_torch.checkpoint import decode_array, unflatten_tree
+
+    du = session.ctx.lookup(fut.id)
+    return unflatten_tree({
+        rel[7:-4]: decode_array(du_file(session, fut, rel)).to(device)
+        for rel in du.manifest if rel.startswith("params/") and rel.endswith(".npy")})
+
+
+def phase_pilot_train(torch, seed, smi, step_s: float):
+    """TRAIN_MODEL (cut to PILOT_TRAIN_LAYERS) trained by PilotTrainer as two
+    train_chunk CUs; ``step_s`` is phase 5's s/step, the bare loop's."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import decode_array
+    from repro_torch.configs import get_config
+    from repro_torch.core import FUNCTIONS
+    from repro_torch.data import decode_raw_tokens
+    from repro_torch.training import make_eval_step
+    from repro_torch.training.trainer import PilotTrainer
+
+    cfg = get_config(TRAIN_MODEL)
+    full_layers = cfg.n_layers
+    if PILOT_TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=PILOT_TRAIN_LAYERS)
+    # bf16 params, fp32 m, v and masters
+    predicted = cfg.param_count() * (2 + 3 * 4)
+    avail = host_available_bytes()
+    log(f"pilot: {cfg.name} at {cfg.n_layers} of {full_layers} layers (d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}): "
+        f"checkpoint ~{predicted / 1e9:.2f} GB; host {avail / 1e9:.1f} GB available (needs "
+        f"~{PILOT_HOST_COPIES} x)")
+    if avail < PILOT_HOST_COPIES * predicted:
+        raise RuntimeError(f"pilot: {avail / 1e9:.1f} GB of host memory cannot hold "
+                           f"{PILOT_HOST_COPIES} x {predicted / 1e9:.2f} GB of checkpoints")
+
+    with pilot_fleet("chip-smoke-train") as s:
+        tr = PilotTrainer(cfg, s, total_steps=PILOT_STEPS, chunk_steps=PILOT_CHUNK_STEPS,
+                          batch=TRAIN_BATCH, seq=TRAIN_SEQ, peak_lr=TRAIN_LR, n_shards=2,
+                          # no chunk wraps its shard: the shards hold every step's window
+                          tokens_per_shard=PILOT_STEPS * TRAIN_BATCH * (TRAIN_SEQ + 1),
+                          seed=seed, run_name="chip-smoke-pilot",
+                          # one card, and up to 7 x the checkpoint in host memory already
+                          ckpt_replication=1, device=DEVICE)
+        # instruments: each step's time (synchronised), each CU body's span,
+        # launches and errors, each CU's completion time
+        step_spans, cu_runs, errors, done_at = [], [], [], {}
+        step_fn = tr.train_step
+
+        def timed_step(params, opt, batch):
+            sync(torch)
+            t0 = time.monotonic()
+            out = step_fn(params, opt, batch)
+            sync(torch)
+            step_spans.append((t0, time.monotonic()))
+            return out
+
+        tr.train_step = timed_step
+        name = f"train_chunk:{tr.run_name}"
+        body = FUNCTIONS.resolve(name)
+
+        def counted_chunk(cu_ctx, *args):
+            before, n0, t0 = read_counts(), len(step_spans), time.monotonic()
+            try:
+                res = body(cu_ctx, *args)
+            except BaseException as e:
+                errors.append(e)
+                raise
+            cu_runs.append(dict(cu=cu_ctx.cu.id, pilot=cu_ctx.pilot.id, start=t0,
+                                end=time.monotonic(), steps=step_spans[n0:],
+                                launches={k: v - before[k] for k, v in read_counts().items()}))
+            return res
+
+        FUNCTIONS.register(name, counted_chunk)
+        submit = tr.submit_dag
+
+        def submit_dag():
+            chunks = submit()
+            for *_, cu in chunks:
+                cu.add_done_callback(lambda f: done_at.setdefault(f.id, time.monotonic()))
+            return chunks
+
+        tr.submit_dag = submit_dag
+
+        torch.cuda.reset_peak_memory_stats()
+        with HostPeak() as host, plain_versions_forbidden():
+            t0 = time.monotonic()
+            tr.stage_data(affinities=["cluster:pod0", "cluster:pod1"])
+            tr.initial_checkpoint()
+            sync(torch)
+            init_s = time.monotonic() - t0
+            reset_counts()
+            t0 = time.monotonic()
+            summary = tr.run(timeout_per_chunk=PILOT_TIMEOUT_S)
+            run_s = time.monotonic() - t0
+            launches = read_counts()
+        device_peak = torch.cuda.max_memory_allocated() / 2**30
+        if errors:
+            raise AssertionError(f"pilot: a train_chunk CU raised: {errors[0]!r}") from errors[0]
+        # the done callbacks run on the session's dispatcher thread, which
+        # may trail the result() that woke this one
+        deadline = time.monotonic() + 60
+        while len(done_at) < len(cu_runs) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        per_step = train_launch_schedule(cfg)
+        if len(cu_runs) != summary["chunks"] or summary["chunks"] != PILOT_STEPS // PILOT_CHUNK_STEPS:
+            raise AssertionError(f"pilot: {len(cu_runs)} CU runs for {summary['chunks']} chunks")
+        cus = []
+        for h, run in zip(summary["history"], cu_runs):
+            n = h["steps"][1] - h["steps"][0]
+            expected = {k: v * n for k, v in per_step.items()}
+            if run["launches"] != expected:
+                raise AssertionError(f"pilot: CU {run['cu']} launches {run['launches']} != "
+                                     f"{expected} ({n} steps)")
+            if len(h["losses"]) != n or not all(math.isfinite(x) for x in h["losses"]):
+                raise AssertionError(f"pilot: CU {run['cu']} losses {h['losses']}")
+            cu = s.ctx.lookup(run["cu"])
+            t = cu.timings
+            steps = [b - a for a, b in run["steps"]]
+            cus.append(dict(
+                cu=run["cu"], pilot=run["pilot"], steps=h["steps"], losses=h["losses"],
+                wall_s=done_at[run["cu"]] - t.stage_start, queue_s=t.t_q_task,
+                stage_in_s=t.t_s, restore_s=run["steps"][0][0] - run["start"],
+                step_s=steps, loop_s=sum(steps),
+                encode_write_s=run["end"] - run["steps"][-1][1],
+                publish_s=done_at[run["cu"]] - run["end"], launches=run["launches"]))
+        if tr.api.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"pilot: the CUs trained on {tr.api.device}")
+        ckpt_bytes = [s.ctx.lookup(f.id).size for f in tr.ckpt_dus]
+        meta = json.loads(du_file(s, tr.ckpt_dus[-1], "meta.json"))
+        opt_step = int(decode_array(du_file(s, tr.ckpt_dus[-1], "opt/step.npy")))
+        if meta != {"step": PILOT_STEPS, "run": tr.run_name} or opt_step != PILOT_STEPS:
+            raise AssertionError(f"pilot: last checkpoint meta {meta}, opt/step {opt_step}")
+
+        # one fixed batch: step 0's window of shard 0
+        shard = s.ctx.lookup(tr.shard_dus[0].id)
+        toks = np.concatenate([decode_raw_tokens(du_file(s, tr.shard_dus[0], rel))
+                               for rel in sorted(shard.manifest)])
+        window = torch.from_numpy(toks[: TRAIN_BATCH * (TRAIN_SEQ + 1)].reshape(
+            TRAIN_BATCH, TRAIN_SEQ + 1).astype(np.int32)).to(DEVICE)
+        batch = {"tokens": window[:, :-1].contiguous(), "labels": window[:, 1:].contiguous()}
+        eval_step = make_eval_step(tr.api)
+        evals = []
+        with plain_versions_forbidden():
+            for fut in (tr.ckpt_dus[0], tr.ckpt_dus[-1]):
+                params = du_params(s, fut, tr.api.device)
+                evals.append(float(eval_step(params, batch)["loss"]))
+                del params
+        if not all(math.isfinite(x) for x in evals) or not evals[1] < evals[0]:
+            raise AssertionError(f"pilot: eval loss {evals[0]} (ckpt_0) -> {evals[1]} "
+                                 f"(ckpt_{PILOT_STEPS}) did not fall")
+        # the run is over: release its host copies before the serve CUs, the
+        # DUs' replicas in the mem:// Pilot-Data and sandboxes (kept by the
+        # process-wide memory backend) and the trainer with its DUs' staging
+        # buffers (kept by the executable registry)
+        for fut in tr.ckpt_dus + tr.shard_dus:
+            du = s.ctx.lookup(fut.id)
+            for pd_id in set(du.locations) | set(du.chunk_holders()):
+                s.ctx.lookup(pd_id).remove_du(du)
+        FUNCTIONS.register(name, released)
+    log(f"pilot: train through {summary['chunks']} train_chunk CUs on pilots "
+        f"{summary['pilots_used']}: set-up (shards + ckpt_0) {init_s:.3f} s, DAG {run_s:.3f} s; "
+        f"checkpoint DUs {[b / 1e9 for b in ckpt_bytes]} GB; host resident peak "
+        f"{host.peak / 1e9:.2f} GB (from {host.start / 1e9:.2f} GB), device peak "
+        f"{device_peak:.2f} GiB on {smi}")
+    for c in cus:
+        log(f"pilot: CU {c['cu']} on {c['pilot']} steps {c['steps']}, queued {c['queue_s']:.3f} s "
+            f"from submission: wall {c['wall_s']:.3f} s = stage-in {c['stage_in_s']:.3f} + restore "
+            f"{c['restore_s']:.3f} + step loop {c['loop_s']:.3f} (steps {c['step_s']}) + encode "
+            f"and write {c['encode_write_s']:.3f} + publish {c['publish_s']:.3f}; the bare loop's "
+            f"2 steps {2 * step_s:.3f} s (phase 5); losses {c['losses']}; launches {c['launches']}")
+    log(f"pilot: eval loss on one fixed batch {evals[0]:.6f} (ckpt_0) -> {evals[1]:.6f} "
+        f"(ckpt_{PILOT_STEPS}); last checkpoint meta {meta}, opt/step {opt_step}")
+    return launches, dict(
+        layers=cfg.n_layers, ckpt_bytes=ckpt_bytes, init_s=init_s, dag_s=run_s, cus=cus,
+        eval_loss=evals, host_peak_bytes=host.peak, host_start_bytes=host.start,
+        device_peak_gib=device_peak, bare_loop_2_steps_s=2 * step_s)
+
+
+def phase_pilot_serve(torch, seed, smi):
+    """MODEL's weights saved once as a checkpoint DU, then decoded by two
+    serve CUs on two pilots at once, each loading the DU it declares as
+    input; both must give a direct engine's tokens."""
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import FUNCTIONS
+    from repro_torch.models import build_model
+    from repro_torch.serving import DecodeEngine
+
+    while gc.collect():  # phase 7's train run, left unreachable in cycles
+        pass
+    log(f"pilot: host resident {HostPeak.resident() / 1e9:.2f} GB before the serve CUs")
+    cfg = get_config(MODEL)
+    api = build_model(cfg, device=DEVICE)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (BATCH, PROMPT_LEN))
+    prompts = prompts[:, :PILOT_SERVE_PROMPT_LEN].tolist()  # phase 4's first tokens
+    runs, errors = {}, []
+
+    def serve_batch(cu_ctx, weights_du, prompt_tokens, new_tokens):
+        try:
+            t0 = time.monotonic()
+            engine = DecodeEngine.from_cu_context(api, cu_ctx, weights_du,
+                                                  batch=len(prompt_tokens),
+                                                  max_len=PILOT_SERVE_MAX_LEN)
+            sync(torch)
+            t1 = time.monotonic()
+            out = engine.generate(torch.tensor(prompt_tokens), new_tokens).cpu().tolist()
+            runs[cu_ctx.cu.id] = dict(pilot=cu_ctx.pilot.id, load_s=t1 - t0,
+                                      generate_s=time.monotonic() - t1)
+            return out
+        except BaseException as e:
+            errors.append(e)
+            raise
+
+    with pilot_fleet("chip-smoke-serve") as s:
+        FUNCTIONS.register("chip-smoke-serve", serve_batch)
+        params = api.init(seed=seed)
+        t0 = time.monotonic()
+        du = Checkpointer(s, run_name="chip-smoke-serve").save(0, params)
+        save_s = time.monotonic() - t0
+        with plain_versions_forbidden():
+            reset_counts()
+            sync(torch)
+            t0 = time.monotonic()
+            cus = [s.submit_cu(executable="chip-smoke-serve",
+                               args=(du.id, prompts, PILOT_SERVE_NEW_TOKENS),
+                               input_data=[du], affinity=f"cluster:pod{pod}")
+                   for pod in (0, 1)]
+            outs = [cu.result(timeout=PILOT_TIMEOUT_S) for cu in cus]
+            serve_s = time.monotonic() - t0
+            launches = read_counts()
+            direct = DecodeEngine(api, params, batch=BATCH, max_len=PILOT_SERVE_MAX_LEN).generate(
+                torch.tensor(prompts), PILOT_SERVE_NEW_TOKENS).cpu().tolist()
+        if errors:
+            raise AssertionError(f"pilot: a serve CU raised: {errors[0]!r}") from errors[0]
+        timings = [dict(cu=cu.id, stage_in_s=cu.timings.t_s, **runs[cu.id]) for cu in cus]
+        pilots = {cu.pilot_id for cu in cus}
+        n_bytes = du.size
+    steps = PILOT_SERVE_PROMPT_LEN + PILOT_SERVE_NEW_TOKENS - 1
+    expected = {name: 0 for name, _, _ in counters()}
+    expected.update(decode_attention=2 * cfg.n_layers * steps,
+                    rmsnorm=2 * (2 * cfg.n_layers + 1) * steps)
+    if launches != expected:
+        raise AssertionError(f"pilot: serve CUs launches {launches} != {expected}")
+    if len(pilots) != 2 or outs[0] != outs[1] or outs[0] != direct:
+        raise AssertionError(f"pilot: serve CUs on {pilots} gave {outs}, the direct engine {direct}")
+    log(f"pilot: serve {cfg.name} weights DU {n_bytes / 1e9:.3f} GB saved in {save_s:.3f} s; two "
+        f"serve CUs (batch {BATCH}, {PILOT_SERVE_PROMPT_LEN} + {PILOT_SERVE_NEW_TOKENS} tokens) on "
+        f"{sorted(pilots)} in {serve_s:.3f} s: {timings}; tokens identical to each other and to "
+        f"a direct engine; launches {launches}")
+    return launches, dict(weights_bytes=n_bytes, save_s=save_s, serve_s=serve_s, cus=timings)
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1281,6 +1675,14 @@ def main() -> int:
     ssm_launches_all = read_counts()
     torch.cuda.empty_cache()
     log(f"ssm: launches in all {ssm_launches_all}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_cu_launches, pilot_train = phase_pilot_train(torch, args.seed, smi, train["s_per_step"])
+    torch.cuda.empty_cache()
+    serve_cu_launches, pilot_serve = phase_pilot_serve(torch, args.seed, smi)
+    torch.cuda.empty_cache()
+    pilot_launches = {k: train_cu_launches[k] + serve_cu_launches[k] for k in train_cu_launches}
+    log(f"pilot: launches in all (train and serve CUs) {pilot_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -1298,7 +1700,8 @@ def main() -> int:
         "rmsnorm_bwd": ("triton", RMSNORM_SRC, "src/repro/models/layers.py:31", "train"),
         "ssd_scan": ("cuda", SSD_SRC, "src/repro/kernels/ssd_scan/ssd_scan.py:105", "ssm"),
     }
-    by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all}
+    by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
+               "pilot": pilot_launches}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -1319,6 +1722,7 @@ def main() -> int:
         raise AssertionError("a kernel time is not finite")
     log("train: " + json.dumps(train))
     log("ssm: " + json.dumps(ssm))
+    log("pilot: " + json.dumps({"train": pilot_train, "serve": pilot_serve}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,9 @@
+from .checkpointer import (
+    Checkpointer,
+    CheckpointError,
+    CheckpointTimeout,
+    load_checkpoint_du,
+)
 from .codec import (
     checkpoint_files,
     decode_array,
@@ -10,10 +16,14 @@ from .codec import (
 )
 
 __all__ = [
+    "CheckpointError",
+    "CheckpointTimeout",
+    "Checkpointer",
     "checkpoint_files",
     "decode_array",
     "encode_array",
     "flatten_tree",
+    "load_checkpoint_du",
     "tensor_from_numpy",
     "tensor_to_numpy",
     "tree_map",

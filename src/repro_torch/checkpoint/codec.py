@@ -74,17 +74,28 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _npy_header(descr: str, shape: Tuple[int, ...]) -> bytes:
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        buf, {"descr": descr, "fortran_order": False, "shape": shape}
+    )
+    return buf.getvalue()
+
+
 def encode_array(arr: Any) -> bytes:
-    """``.npy`` bytes of a tensor or array, identical to the JAX package's."""
+    """``.npy`` bytes of a tensor or array, identical to the JAX package's.
+    A tensor's bytes are copied once on the host, behind the header that
+    ``np.save`` writes for a C-ordered array of its dtype and shape."""
     if isinstance(arr, torch.Tensor):
-        arr = tensor_to_numpy(arr)
+        t = arr.detach().cpu().contiguous()
+        host = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        descr = _BF16_DESCR if t.dtype == torch.bfloat16 else np.lib.format.dtype_to_descr(host.dtype)
+        return b"".join((_npy_header(descr, host.shape), host.reshape(-1).view(np.uint8)))
     arr = np.asarray(arr)
     buf = io.BytesIO()
     if is_bf16_bits(arr):
         bits = np.ascontiguousarray(arr).view(np.int16)
-        np.lib.format.write_array_header_1_0(
-            buf, {"descr": _BF16_DESCR, "fortran_order": False, "shape": bits.shape}
-        )
+        buf.write(_npy_header(_BF16_DESCR, bits.shape))
         buf.write(bits.tobytes())
     else:
         np.save(buf, arr, allow_pickle=False)
@@ -92,8 +103,14 @@ def encode_array(arr: Any) -> bytes:
 
 
 def decode_array(data: bytes) -> torch.Tensor:
-    """A CPU tensor from ``.npy`` bytes written by either package."""
-    return tensor_from_numpy(np.load(io.BytesIO(data), allow_pickle=False))
+    """A CPU tensor from ``.npy`` bytes written by either package; it takes
+    over the array ``np.load`` makes instead of copying it again."""
+    arr = np.load(io.BytesIO(data), allow_pickle=False)
+    if not arr.flags.writeable:  # a view of ``data``: the tensor must own its memory
+        arr = arr.copy()
+    if is_bf16_bits(arr):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def checkpoint_files(

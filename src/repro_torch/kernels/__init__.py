@@ -12,5 +12,18 @@ Nothing here builds or imports a kernel when the package is imported.
 The wrappers are ``decode_attention.ops.decode_attention``,
 ``flash_attention.ops.flash_attention`` (an autograd Function with a
 backward kernel), ``rmsnorm.ops.rmsnorm`` (likewise) and
-``ssd_scan.ops.ssd`` (forward only).
+``ssd_scan.ops.ssd`` (forward only).  Each counts its launches in integer
+attributes (``launches``, and ``backward_launches`` / ``residual_launches``
+where it has them) through :func:`count_launch`, which takes a lock: serve
+and train CUs call the wrappers from several agent threads at once.
 """
+
+import threading
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.<attr>`` (read-modify-write under a lock)."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

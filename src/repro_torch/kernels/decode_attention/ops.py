@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import build
+from .. import build, count_launch
 from .ref import decode_attention_ref
 
 #: most blocks that share one (batch, kv head): a thread-block cluster
@@ -140,7 +140,7 @@ def _launch(q3, k_cache, v_cache, positions_q, positions_k, window, sm_scale):
     )
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (cudaError {rc})")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 

@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .. import build
+from .. import build, count_launch
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 #: the instances the CUDA source is compiled for
@@ -115,7 +115,7 @@ def _fwd_cuda(q, k, v, causal, window, scale):
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     a = _args(q, k, v, causal, window, scale, o=out, out=out, lse=lse)
     _run("flash_attention_fwd_launch", a)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out, lse
 
 
@@ -133,7 +133,7 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale):
     a = _args(q, k, v, causal, window, scale, o=out, dout=dout, dq=dq, dk=dk, dv=dv,
               lse=lse, delta=delta)
     _run("flash_attention_bwd_launch", a)
-    flash_attention.backward_launches += 1
+    count_launch(flash_attention, "backward_launches")
     return dq, dk, dv
 
 

@@ -15,6 +15,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .. import count_launch
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref, rmsnorm_residual_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -106,9 +107,9 @@ def _launch(x, w, eps, residual):
             num_warps=warps,
         )
         if residual is None:
-            rmsnorm.launches += 1
+            count_launch(rmsnorm)
         else:
-            rmsnorm.residual_launches += 1
+            count_launch(rmsnorm, "residual_launches")
     if residual is None:
         return out.view(x.shape)
     return out.view(x.shape), res_out.view(x.shape)
@@ -153,7 +154,7 @@ def _launch_bwd(dy, x, w, eps):
     kernel.rmsnorm_dw_kernel[(-(-d // block_c),)](
         part, dw, n_prog, d, BLOCK_P=32, BLOCK_C=block_c, num_warps=4,
     )
-    rmsnorm.backward_launches += 1
+    count_launch(rmsnorm, "backward_launches")
     return dx.view(x.shape), dw
 
 

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import build
+from .. import build, count_launch
 from .ref import (
     ssd_carry_ref, ssd_cb_ref, ssd_chunk_states_ref, ssd_cum_ref, ssd_output_ref, ssd_ref,
 )
@@ -239,7 +239,7 @@ def ssd(
         raise NotImplementedError("ssd: the chunk scan has no backward kernel")
     ws = workspace(x, dA, B, C, chunk, initial_state)
     _launch(ws, _ALL)
-    ssd.launches += 1
+    count_launch(ssd)
     return ws.y, ws.final
 
 

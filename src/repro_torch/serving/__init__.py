@@ -1,3 +1,3 @@
-from .engine import DecodeEngine, make_serve_step
+from .engine import DecodeEngine, DecodeRequest, make_serve_step, params_from_input
 
-__all__ = ["DecodeEngine", "make_serve_step"]
+__all__ = ["DecodeEngine", "DecodeRequest", "make_serve_step", "params_from_input"]

@@ -11,12 +11,36 @@ form) does.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+import dataclasses
+from typing import Any, Callable, Mapping, Union
 
 import torch
 
 from ..bridge import params_from_files
+from ..checkpoint import decode_array, unflatten_tree
+from ..device import resolve_device
 from ..models.registry import ModelApi
+
+
+def params_from_input(
+    cu_ctx, weights_du: str, device: Union[str, torch.device] = "cuda"
+) -> Any:
+    """Model params on ``device`` from a checkpoint DU staged as a CU
+    *input*: the serving cold-start path of ``repro.serving.engine``.
+
+    Every serve CU declares the weights DU in ``input_data``, so each
+    replica's stage-in goes through the transfer service (and, with the
+    Session's tier cache on, promotes the DU into the site's mem-tier cache
+    after ``promote_after`` loads).  Each ``params/<path>.npy`` entry is read
+    from the CU's sandbox, decoded and moved to ``device`` one leaf at a
+    time.  Raises if ``device`` asks for CUDA and there is none.
+    """
+    dev = resolve_device(device)
+    items = {}
+    for rel in cu_ctx.input_manifest(weights_du):
+        if rel.startswith("params/") and rel.endswith(".npy"):
+            items[rel[7:-4]] = decode_array(cu_ctx.read_input(weights_du, rel)).to(dev)
+    return unflatten_tree(items)
 
 
 def make_serve_step(api: ModelApi) -> Callable:
@@ -28,6 +52,12 @@ def make_serve_step(api: ModelApi) -> Callable:
         return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
 
     return serve_step
+
+
+@dataclasses.dataclass
+class DecodeRequest:
+    prompt: torch.Tensor  # [S] int
+    max_new_tokens: int = 16
 
 
 class DecodeEngine:
@@ -50,6 +80,14 @@ class DecodeEngine:
         """An engine whose weights are read from a checkpoint DU file-set, as
         a serve CU loads the weights DU it declares as input."""
         return cls(api, params_from_files(files, api.device), batch, max_len)
+
+    @classmethod
+    def from_cu_context(
+        cls, api: ModelApi, cu_ctx, weights_du: str, batch: int, max_len: int
+    ) -> "DecodeEngine":
+        """A replica engine inside a serve CU, its weights loaded onto the
+        model's device from the checkpoint DU declared as the CU's input."""
+        return cls(api, params_from_input(cu_ctx, weights_du, api.device), batch, max_len)
 
     def _advance(self, tokens: torch.Tensor) -> torch.Tensor:
         if self._pos >= self.max_len:

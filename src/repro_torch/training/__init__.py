@@ -1,5 +1,6 @@
-"""Training: the counterpart of ``repro.training`` (the ``PilotTrainer``
-CU needs the Session runtime and comes with it)."""
+"""Training: the counterpart of ``repro.training``.  ``PilotTrainer``, the
+chunk-CU driver on the port's Session runtime, lives in
+:mod:`repro_torch.training.trainer`."""
 
 from .train_step import make_eval_step, make_train_step
 

@@ -3,6 +3,7 @@ its phases run end to end on the CPU at a tiny size (plain versions standing
 in for the kernels, host timers for CUDA events), so the script's own logic
 is checked before it reaches a card."""
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -58,6 +59,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke as cs
     from repro_torch.configs import base, registry
+    from repro_torch.kernels import count_launch
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -99,6 +101,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         SSD_CHUNK=16, SSM_MODELS=("tiny-mamba", "tiny-zamba"), SSM_PROMPT_LEN=25,
         SSM_NEW_TOKENS=8, SSM_MAX_LEN=32, SSM_BATCH=2, SSM_CHECK_POSITIONS=(0, 15, 16, 31),
         PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,
+        PILOT_TRAIN_LAYERS=None, PILOT_SERVE_PROMPT_LEN=6, PILOT_SERVE_NEW_TOKENS=3,
+        PILOT_SERVE_MAX_LEN=16, PILOT_TIMEOUT_S=120.0,
+        # the plain versions are the CPU path: phase 7 may not refuse them here
+        plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
         phase_build=lambda torch: None,
         # no profiler trace of a card here: run the call and name the kernel
@@ -114,9 +120,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     # on the CPU the wrappers run their plain versions, which do not count:
     # count those calls instead, so the launch assertions are exercised (the
     # residual variant's too, so that its zero on the serve path is checked)
+    # (with the wrappers' own lock: phase 7's serve CUs run on two threads)
     def counting(fn, wrapper, counter="launches"):
         def call(*a, **k):
-            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+            count_launch(wrapper, counter)
             return fn(*a, **k)
         return call
 
@@ -162,6 +169,12 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert ssm == 1 * 2 * (25 + 8 - 1)  # tiny-zamba's shared attention, bf16 and fp32 decode
     assert kernels["flash_attention"]["launches_by_path"]["ssm"] == 2
     assert kernels["ssd_scan"]["library_ms"] is None
+    # pilot: two train_chunk CUs of 2 steps (the train step's launches above,
+    # times 4 steps in all), then two serve CUs of 6 + 3 tokens (8 steps each)
+    pilot = {name: k["launches_by_path"]["pilot"] for name, k in kernels.items()}
+    assert pilot == {"flash_attention": 4 * 6, "flash_attention_bwd": 4 * 3,
+                     "rmsnorm": 4 * 13 + 2 * 17 * 8, "rmsnorm_bwd": 4 * 7,
+                     "decode_attention": 2 * 8 * 8, "rmsnorm_residual": 0, "ssd_scan": 0}
     # B2's cases: one device kernel a call, and the main path's split plans
     dec = kernels["decode_attention"]["cases"]
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)

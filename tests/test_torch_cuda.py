@@ -523,3 +523,111 @@ def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
                 lg, cache = api.decode_step(params, cache, tokens[:, i : i + 1], i)
                 err = (lg[:, 0].float() - full[:, i]).abs().max().item()
                 assert err < 1e-4 * max(1.0, full[:, i].abs().max().item()), (arch, i, err)
+
+
+def _refuse_plain_versions(monkeypatch):
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((fa_ops, "flash_attention_ref"), (fa_ops, "flash_attention_bwd_ref"),
+                      (dec_ops, "decode_attention_ref"), (norm_ops, "rmsnorm_ref"),
+                      (norm_ops, "rmsnorm_bwd_ref"), (norm_ops, "rmsnorm_residual_ref"),
+                      (ssd_ops, "ssd_ref")):
+        monkeypatch.setattr(mod, name, boom)
+
+
+def _two_pod_session():
+    from repro_torch.core import Session, make_tpu_fleet_topology
+
+    topo, _ = make_tpu_fleet_topology(pods=2, hosts_per_pod=1)
+    s = Session(topology=topo)
+    for pod in (0, 1):
+        s.start_pilot_data(service_url=f"mem://cluster:pod{pod}/card{pod}",
+                           affinity=f"cluster:pod{pod}")
+    for p in [s.start_pilot(resource_url=f"sim://cluster:pod{pod}:host0", slots=1)
+              for pod in (0, 1)]:
+        p.wait_active()
+    return s
+
+
+def test_pilot_trainer_on_card_runs_no_plain_version(cuda, monkeypatch):
+    """PilotTrainer at smoke size (head_dim 64, bf16) trains as two
+    train_chunk CUs on the card with every plain version made to raise; the
+    launch counters say every step of both CUs went through the kernels."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.training.trainer import PilotTrainer
+
+    _refuse_plain_versions(monkeypatch)
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b-smoke"), head_dim=64, n_layers=3,
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    with _two_pod_session() as s:
+        tr = PilotTrainer(cfg, s, total_steps=4, chunk_steps=2, batch=2, seq=64, n_shards=2,
+                          tokens_per_shard=4 * 2 * 65, run_name="card-pilot", device=cuda)
+        tr.stage_data(affinities=["cluster:pod0", "cluster:pod1"])
+        tr.initial_checkpoint()
+        fa_ops.flash_attention.launches = fa_ops.flash_attention.backward_launches = 0
+        norm_ops.rmsnorm.launches = norm_ops.rmsnorm.backward_launches = 0
+        summary = tr.run(timeout_per_chunk=300)
+        du = s.ctx.lookup(tr.ckpt_dus[-1].id)
+        meta = json.loads(s.ctx.lookup(du.locations[0]).fetch_du_file(du.id, "meta.json"))
+    losses = [x for h in summary["history"] for x in h["losses"]]
+    assert summary["chunks"] == 2 and len(losses) == 4
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert meta == {"step": 4, "run": "card-pilot"}
+    n = cfg.n_layers  # every step: n forward, n recomputed, n backward
+    assert fa_ops.flash_attention.launches == 4 * 2 * n
+    assert fa_ops.flash_attention.backward_launches == 4 * n
+    assert norm_ops.rmsnorm.launches == 4 * ((2 * n + 1) + 2 * n)
+    assert norm_ops.rmsnorm.backward_launches == 4 * (2 * n + 1)
+
+
+def test_two_serve_cus_on_card_count_every_launch(cuda, monkeypatch):
+    """Two serve CUs decode at once on two pilots from one weights DU, on
+    the card, with every plain version made to raise: both give a direct
+    engine's tokens, and the launch counters, bumped from both agent
+    threads, add up exactly."""
+    import dataclasses
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import FUNCTIONS
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import DecodeEngine
+
+    _refuse_plain_versions(monkeypatch)
+    cfg = dataclasses.replace(get_config("gemma3-1b-smoke"), head_dim=64,
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    api = build_model(cfg, device=cuda)
+    params = api.init(seed=0)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 24), generator=torch.Generator().manual_seed(0))
+    new = 16
+
+    def serve(cu_ctx, weights_du, tokens):
+        engine = DecodeEngine.from_cu_context(api, cu_ctx, weights_du, batch=4, max_len=64)
+        return engine.generate(torch.tensor(tokens), new).cpu().tolist()
+
+    FUNCTIONS.register("card-serve", serve)
+    with _two_pod_session() as s:
+        du = Checkpointer(s, run_name="card-serve").save(0, params)
+        dec_ops.decode_attention.launches = norm_ops.rmsnorm.launches = 0
+        cus = [s.submit_cu(executable="card-serve", args=(du.id, prompts.tolist()),
+                           input_data=[du], affinity=f"cluster:pod{pod}") for pod in (0, 1)]
+        outs = [cu.result(timeout=300) for cu in cus]
+        assert len({cu.pilot_id for cu in cus}) == 2
+    steps = prompts.shape[1] + new - 1
+    assert dec_ops.decode_attention.launches == 2 * cfg.n_layers * steps
+    assert norm_ops.rmsnorm.launches == 2 * (2 * cfg.n_layers + 1) * steps
+    direct = DecodeEngine(api, params, batch=4, max_len=64).generate(prompts, new)
+    assert outs[0] == outs[1] == direct.cpu().tolist()
