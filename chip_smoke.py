@@ -57,10 +57,21 @@ Phases, each of which must pass (any failure exits non-zero):
                 other's and a direct engine's.  Every plain version raises
                 while the CUs run.  CU times are broken down (queue, stage-in,
                 restore, step loop, encode and write, publish);
-  8. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+  8. moe     -- granite-moe-3b-a800m at every published width and depth (32
+                layers of 40 experts top-8, 24/8 heads: GQA group 3; bf16,
+                random weights from --seed) served from checkpoint DU files by
+                DecodeEngine, once on the bf16 KV cache and once on the int8
+                one: 4 prompts of 256 tokens plus 24 new, max_len 512.  Every
+                plain version raises; the launches of B2, B3a and B1 are exact.
+                Decode logits are held against the teacher-forced forward at
+                the capacity factor E / k, whose capacity is T (it drops
+                nothing, as decode at 4 tokens never does); the forward at the
+                published factor 1.25 logs the pairs it drops;
+  9. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
-served model), of one train step and of one mamba2-370m prefill.
+served model; granite-moe's with its MoE layers' share), of one train step
+and of one mamba2-370m prefill.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -127,6 +138,12 @@ PILOT_HOST_COPIES = 7
 PILOT_SERVE_PROMPT_LEN, PILOT_SERVE_NEW_TOKENS, PILOT_SERVE_MAX_LEN = 16, 8, 64
 PILOT_TIMEOUT_S = 900.0
 
+# phase 8: granite-moe-3b-a800m served on the bf16 and the int8 KV cache
+MOE_MODEL = "granite-moe-3b-a800m"
+MOE_PROMPT_LEN, MOE_NEW_TOKENS, MOE_MAX_LEN, MOE_BATCH = 256, 24, 512, 4
+MOE_CHECK_POSITIONS = (0, 127, 255, 278)  # the engine decodes positions 0-278
+MOE_INT8_LOGIT_TOL = 0.05  # tests/test_moe_blocked.py's bound on the int8 cache
+
 # phase 3 shapes.  Flash attention: (label, B, S, Hq, Hkv, D, causal, window);
 # the first is the training path's, the others gemma3-1b's teacher-forced
 # forward of phase 4 (5 sliding-window layers : 1 global)
@@ -135,6 +152,7 @@ FLASH_CASES = [
     ("gemma3-1b forward, window", 4, 544, 4, 1, 256, True, 512),
     ("gemma3-1b forward, global", 4, 544, 4, 1, 256, True, None),
     ("zamba2-1.2b forward, shared attention", 4, 512, 32, 32, 64, True, None),
+    ("granite-moe forward", 4, 280, 24, 8, 64, True, None),  # phase 8's, G 3
 ]
 FLASH_FP32_CASES = [
     ("fp32 ragged", 2, 300, 8, 2, 80, True, 128),
@@ -150,7 +168,8 @@ FLASH_FP32_CASES = [
 RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
                  (4, 1024), (2044, 1024), (32768, 1024),
                  (4, 2048), (2044, 2048), (32768, 2048),
-                 (4, 4096), (2044, 4096), (16384, 2560)]
+                 (4, 4096), (2044, 4096), (16384, 2560),
+                 (4, 1536), (1120, 1536)]  # granite-moe: a decode step, phase 8's forward
 RMSNORM_RESIDUAL_CASES = [(4, 1152), (8, 1152), (4096, 1152)]
 # RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
 # step's, 2176 x 1152 gemma3-1b's forward
@@ -163,6 +182,9 @@ DECODE_CASES = [
     ("gemma3-1b global", 4, 1024, 4, 1, 256, None, 543),
     ("gemma3-1b global", 8, 1024, 4, 1, 256, None, 543),
     ("zamba2-1.2b shared attention", 4, 512, 32, 32, 64, None, 511),
+    # granite-moe-3b-a800m (G 3) at phase 8's last decode step
+    ("granite-moe", 4, 512, 24, 8, 64, None, 278),
+    ("granite-moe", 8, 512, 24, 8, 64, None, 278),
 ]
 # SSD chunk scan: (label, B, S, H, P, N, G, dtype, initial state); the timed
 # cases are the mamba2 prefill and the phase 6 forwards, the edge cases are
@@ -367,16 +389,37 @@ def read_counts() -> dict:
 
 
 # ------------------------------------------------------------ phase 3
+PROFILE_MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
+PROFILE_ATTEMPTS = 4
+
+
 def device_kernels(torch, fn) -> list:
     """The names of the device kernels that one call of ``fn`` runs, as
-    torch.profiler records them (memory copies and fills count too)."""
+    torch.profiler records them (memory copies and fills count too).
+
+    A trace can come back with no device activity at all, and an empty list
+    would then say nothing of ``fn``. So a marker kernel runs just before and
+    just after ``fn``: a trace that lacks either marker recorded nothing of
+    the device and is taken again, up to PROFILE_ATTEMPTS times; a trace that
+    holds both is read, without the markers."""
     from torch.profiler import ProfilerActivity, profile
 
-    sync(torch)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    torch.cuda._sleep(1)  # load the marker's kernel before any trace
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         sync(torch)
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda._sleep(1)
+            sync(torch)
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        markers = [n for n in names if PROFILE_MARKER in n]
+        if len(markers) == 2:
+            return [n for n in names if PROFILE_MARKER not in n]
+        log(f"kernels: trace {attempt} of {PROFILE_ATTEMPTS} holds {len(markers)} of its 2 "
+            f"marker kernels ({len(names)} device events); tracing again")
+    raise AssertionError(f"torch.profiler recorded no device activity in {PROFILE_ATTEMPTS} "
+                         "traces, so the device kernels of one call are unknown")
 
 
 def decode_plan(torch, ops, b, hkv, sk, d, g) -> dict:
@@ -868,14 +911,45 @@ def phase_serve(torch, seed, smi):
     return engine, cache, seq, launches
 
 
+# the profiler's names of the MoE layer's spans (see ``moe_spans``)
+MOE_SPANS = ("moe_mlp_local", "moe_expert_ffn")
+
+
+@contextlib.contextmanager
+def moe_spans():
+    """While on, every ``moe_mlp_local`` call of the model, and the expert FFN
+    inside it, runs in a torch.profiler ``record_function`` span, so that a
+    profile can say how much device time the MoE layers take."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe, transformer
+
+    saved = (transformer.moe_mlp_local, moe._expert_ffn)
+
+    def span(name, fn):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+
+    transformer.moe_mlp_local = span(MOE_SPANS[0], saved[0])
+    moe._expert_ffn = span(MOE_SPANS[1], saved[1])
+    try:
+        yield
+    finally:
+        transformer.moe_mlp_local, moe._expert_ffn = saved
+
+
 def phase_profile(torch, engine, cache, seq):
-    """Device time by kernel over eight decode steps after the served ones."""
+    """Device time by kernel over eight decode steps after the served ones;
+    for an MoE model also the device time inside its MoE layers."""
     from torch.profiler import ProfilerActivity, profile
 
     api = engine.api
     tok = seq[:, -1:]
     steps = 8
-    with torch.no_grad():
+    spans = {}
+    with torch.no_grad(), moe_spans():
         api.decode_step(engine.params, cache, tok, seq.shape[1])  # warm
         sync(torch)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -888,6 +962,11 @@ def phase_profile(torch, engine, cache, seq):
     total = 0.0
     launches = 0
     for ev in prof.key_averages():
+        if ev.key in MOE_SPANS:  # a span, not a kernel (on the device too, as an annotation)
+            if ev.device_type == torch.autograd.DeviceType.CPU:  # its kernels' device time
+                t = getattr(ev, "device_time_total", None)
+                spans[ev.key] = ev.cuda_time_total if t is None else t
+            continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops; their kernels are listed on their own
         t = getattr(ev, "self_device_time_total", None)
@@ -902,6 +981,9 @@ def phase_profile(torch, engine, cache, seq):
             g = "rmsnorm kernel"
         elif any(s in name.lower() for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")):
             g = "matmul (cuBLAS)"
+        elif any(s in name.lower() for s in ("sort", "topk", "searchsorted", "scatter",
+                                              "index", "gather")):
+            g = "PyTorch sort/top-k/index/scatter (MoE routing and dispatch, embed)"
         elif "elementwise" in name or "reduce" in name or "copy" in name.lower():
             g = "PyTorch elementwise/reduce/copy"
         else:
@@ -912,6 +994,11 @@ def phase_profile(torch, engine, cache, seq):
         f"{total / 1e3 / steps:.3f} ms/step ({100 * total / 1e6 / wall:.1f} %)")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1])[:14]:
         log(f"profile:   {t / 1e3 / steps:8.4f} ms/step  {g}")
+    if spans:
+        layer, ffn = spans.get(MOE_SPANS[0], 0.0), spans.get(MOE_SPANS[1], 0.0)
+        log(f"profile:   of all kernels, inside moe_mlp_local {layer / 1e3 / steps:.4f} ms/step: "
+            f"expert FFN (bmm, SiLU) {ffn / 1e3 / steps:.4f}, routing, dispatch and combine "
+            f"{(layer - ffn) / 1e3 / steps:.4f}")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1071,7 +1158,7 @@ def ssm_launches(cfg, path: str) -> dict:
     """Launches that one decode step (``path="step"``) or one teacher-forced
     forward (``"forward"``) implies: every layer's norms (two each) and the
     final norm; a decode step's attention layers run B2, a forward's run B1
-    and its mamba layers B4."""
+    and its mamba layers B4 (phases 6 and 8)."""
     kinds = cfg.layer_kinds()
     n_mamba = kinds.count("mamba")
     out = {name: 0 for name, _, _ in counters()}
@@ -1638,6 +1725,165 @@ def phase_pilot_serve(torch, seed, smi):
     return launches, dict(weights_bytes=n_bytes, save_s=save_s, serve_s=serve_s, cus=timings)
 
 
+# ------------------------------------------------------------ phase 8
+def phase_moe(torch, seed, smi, profile: bool = False):
+    """MOE_MODEL served from checkpoint files on the bf16 and the int8 KV
+    cache, every plain version refused; decode logits against the drop-free
+    teacher-forced forward (capacity factor E / k, capacity T): decode at
+    MOE_BATCH tokens never drops (an expert takes at most 4 <= 8 tokens), so
+    that forward computes decode's function.  The forward at the published
+    capacity factor logs how many (token, expert) pairs it drops."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint_files, flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.layers import unembed
+    from repro_torch.serving import DecodeEngine
+
+    cfg = get_config(MOE_MODEL)
+    m = cfg.moe
+    api = build_model(cfg, device=DEVICE)
+    recorded = {}
+
+    def recording(api_, kv):
+        """The model's decode step, keeping the logits at the check positions."""
+        def step(params, cache, tokens, pos_index):
+            logits, cache = api_.decode_step(params, cache, tokens, pos_index)
+            if pos_index in MOE_CHECK_POSITIONS:
+                recorded[kv, pos_index] = logits[:, 0].float()
+            return logits, cache
+        return dataclasses.replace(api_, decode_step=step)
+
+    t0 = time.perf_counter()
+    files = checkpoint_files(0, f"{MOE_MODEL}-chip-smoke", api.init(seed=seed))
+    engine = DecodeEngine.from_files(recording(api, "bfloat16"), files, batch=MOE_BATCH,
+                                     max_len=MOE_MAX_LEN)
+    n_bytes = sum(len(b) for b in files.values())
+    del files
+    params = engine.params
+    n_params = sum(t.numel() for _, t in flatten_tree(params))
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    log(f"moe: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim_} (GQA group {cfg.n_heads // cfg.n_kv_heads}), "
+        f"{m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff_expert}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B params) through {n_bytes / 2**30:.2f} GiB of checkpoint files "
+        f"in {load_s:.1f} s")
+
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    plan = decode_plan(torch, dec_ops, MOE_BATCH, cfg.n_kv_heads, MOE_MAX_LEN, cfg.head_dim_,
+                       cfg.n_heads // cfg.n_kv_heads)
+    log(f"moe: B2's split plan for the {MOE_MAX_LEN}-slot cache at batch {MOE_BATCH}: {plan}")
+    prompts = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT_LEN)))
+    steps = MOE_PROMPT_LEN + MOE_NEW_TOKENS - 1
+    per_step, per_forward = ssm_launches(cfg, "step"), ssm_launches(cfg, "forward")
+    out, seqs = {}, {}
+    cf = m.n_experts / m.top_k
+    nodrop = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=cf)),
+                         device=DEVICE)
+    before_phase = read_counts()
+    with plain_versions_forbidden(), torch.no_grad():
+        for kv in ("bfloat16", "int8"):
+            eng = engine
+            if kv == "int8":
+                api8 = build_model(dataclasses.replace(cfg, kv_cache_dtype="int8"), device=DEVICE)
+                eng = DecodeEngine(recording(api8, kv), params, batch=MOE_BATCH, max_len=MOE_MAX_LEN)
+                if eng.cache["groups"]["pos0"]["k"].dtype != torch.int8:
+                    raise AssertionError("moe: the int8 engine's cache is not int8")
+            before = read_counts()
+            sync(torch)
+            t0 = time.perf_counter()
+            new = eng.generate(prompts, MOE_NEW_TOKENS)
+            sync(torch)
+            elapsed = time.perf_counter() - t0
+            check_launches(before, {k: v * steps for k, v in per_step.items()}, f"moe {kv} decode")
+            if new.shape != (MOE_BATCH, MOE_NEW_TOKENS) or not bool(
+                    ((new >= 0) & (new < cfg.vocab_size)).all()):
+                raise AssertionError(f"moe: bad generated tokens {tuple(new.shape)}")
+            seqs[kv] = torch.cat([prompts.to(new.device), new], dim=1)  # [B, 280]
+            out[kv] = dict(ms_per_step=elapsed / steps * 1e3,
+                           tokens_per_s=MOE_BATCH * steps / elapsed)
+            log(f"moe: {kv} KV cache: {steps} decode steps at batch {MOE_BATCH}: {elapsed:.3f} s, "
+                f"{out[kv]['ms_per_step']:.3f} ms/step, {out[kv]['tokens_per_s']:.1f} tokens/s "
+                f"on {smi}; launches per step {per_step}")
+            del eng
+        same = torch.equal(seqs["int8"], seqs["bfloat16"])
+        refs = {}
+        for kv in ("bfloat16", "int8"):
+            if kv == "int8" and same:
+                refs[kv] = refs["bfloat16"]
+                continue
+            before = read_counts()
+            hidden = nodrop.forward(params, seqs[kv], return_hidden=True)
+            check_launches(before, per_forward, f"moe drop-free forward over the {kv} tokens")
+            refs[kv] = unembed(hidden[:, list(MOE_CHECK_POSITIONS)], params["embed"], cfg).float()
+            del hidden
+        # the published capacity factor: count the pairs that each layer drops
+        dropped, dispatch = [], moe._dispatch_tables
+
+        def counting_dispatch(expert_idx, n_tokens, e_pad, cap):
+            slot_table, token_slots = dispatch(expert_idx, n_tokens, e_pad, cap)
+            dropped.append((token_slots == e_pad * cap).sum())
+            return slot_table, token_slots
+
+        moe._dispatch_tables = counting_dispatch
+        try:
+            before = read_counts()
+            hidden = api.forward(params, seqs["bfloat16"], return_hidden=True)
+            check_launches(before, per_forward, "moe forward at the published capacity factor")
+        finally:
+            moe._dispatch_tables = dispatch
+        published = unembed(hidden[:, list(MOE_CHECK_POSITIONS)], params["embed"], cfg).float()
+        del hidden
+    launches = {k: v - before_phase[k] for k, v in read_counts().items()}
+    n_fwd = 2 if same else 3  # drop-free (per distinct token sequence), published
+    expected = {k: 2 * steps * per_step[k] + n_fwd * per_forward[k] for k in per_step}
+    if launches != expected:
+        raise AssertionError(f"moe: launches {launches} != {expected}")
+
+    def errors(kv, ref):
+        dec = torch.stack([recorded[kv, p] for p in MOE_CHECK_POSITIONS], dim=1)
+        if dec.shape != ref.shape or not bool(dec.isfinite().all()):
+            raise AssertionError(f"moe: {kv} decode logits {tuple(dec.shape)} not finite")
+        scale = max(1.0, ref.abs().max().item())
+        err = (dec - ref).abs()
+        return ({p: err[:, j].max().item() / scale for j, p in enumerate(MOE_CHECK_POSITIONS)},
+                err.mean().item() / scale)
+
+    bf16_pos, bf16_mean = errors("bfloat16", refs["bfloat16"])
+    int8_pos, int8_mean = errors("int8", refs["int8"])
+    pub_pos, pub_mean = errors("bfloat16", published)
+    n_dropped = int(torch.stack(dropped).sum())
+    n_pairs = cfg.n_layers * MOE_BATCH * (MOE_PROMPT_LEN + MOE_NEW_TOKENS) * m.top_k
+    log(f"moe: decode vs the drop-free forward (capacity factor {cf:g}) at positions "
+        f"{MOE_CHECK_POSITIONS}: bf16 cache max |err| / max(1, max |logit|) = {bf16_pos}, mean "
+        f"{bf16_mean:.2e} (tol {LOGIT_TOL}, mean {LOGIT_MEAN_TOL}); int8 cache {int8_pos}, mean "
+        f"{int8_mean:.2e} (tol {MOE_INT8_LOGIT_TOL}; its tokens "
+        f"{'equal' if same else 'differ from'} the bf16 engine's)")
+    log(f"moe: the forward at the published capacity factor {m.capacity_factor} drops "
+        f"{n_dropped} of {n_pairs} (token, expert) pairs ({100 * n_dropped / n_pairs:.2f} %); its "
+        f"logits against the bf16 decode: {pub_pos}, mean {pub_mean:.2e} (logged, not a gate)")
+    log(f"moe: launches {launches} = 2 x {steps} decode steps x {per_step} + {n_fwd} forwards "
+        f"x {per_forward}")
+    if max(bf16_pos.values()) > LOGIT_TOL or bf16_mean > LOGIT_MEAN_TOL:
+        raise AssertionError("moe: bf16-cache decode logits disagree with the drop-free forward")
+    if max(int8_pos.values()) > MOE_INT8_LOGIT_TOL:
+        raise AssertionError("moe: int8-cache decode logits disagree with the drop-free forward")
+    out.update(params=n_params, checkpoint_bytes=n_bytes, load_s=load_s, b2_plan=plan,
+               bf16_logit_err=bf16_pos, bf16_logit_mean_err=bf16_mean, int8_logit_err=int8_pos,
+               int8_logit_mean_err=int8_mean, int8_tokens_equal=same, dropped_pairs=n_dropped,
+               pairs=n_pairs, published_cf_logit_err=pub_pos)
+    if profile:  # decodes on past the served sequence
+        phase_profile(torch, engine, engine.cache, seqs["bfloat16"])
+    return launches, out
+
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1683,6 +1929,10 @@ def main() -> int:
     pilot_launches = {k: train_cu_launches[k] + serve_cu_launches[k] for k in train_cu_launches}
     log(f"pilot: launches in all (train and serve CUs) {pilot_launches}; "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_launches_all, moe_out = phase_moe(torch, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    log(f"moe: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -1701,7 +1951,7 @@ def main() -> int:
         "ssd_scan": ("cuda", SSD_SRC, "src/repro/kernels/ssd_scan/ssd_scan.py:105", "ssm"),
     }
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
-               "pilot": pilot_launches}
+               "pilot": pilot_launches, "moe": moe_launches_all}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -1723,6 +1973,7 @@ def main() -> int:
     log("train: " + json.dumps(train))
     log("ssm: " + json.dumps(ssm))
     log("pilot: " + json.dumps({"train": pilot_train, "serve": pilot_serve}))
+    log("moe: " + json.dumps(moe_out))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,9 @@
 //     dot products are reduced across those lanes together, each step halving
 //     the values a lane carries; one warp per query head then updates the
 //     online softmax for the tile, and every thread adds p * V for one 16-byte
-//     column chunk over its share of the tile's slots.
+//     column chunk over its share of the tile's slots.  A group that is not a
+//     power of two (G 3, granite's 24/8 heads) is reduced as the next one (4),
+//     the extra head's partial 0 and never stored.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -93,6 +95,9 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// The power of two at or above g.
+__host__ __device__ constexpr int pow2_ceil(int g) { return g <= 1 ? 1 : 2 * pow2_ceil((g + 1) / 2); }
 
 // Sums v[g] over the LPS lanes of a group (LPS a power of two, G <= LPS).  The
 // first log2(G) steps halve the values each lane carries (a lane keeps one
@@ -170,7 +175,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
   constexpr int KK = CH / LPS;            // chunks of a row per lane
   constexpr int SPP = kThreads / LPS;     // slots scored at once
   constexpr int TPU = kThreads / CH;      // threads that share a column chunk in p * V
-  static_assert(G <= kWarps && G <= LPS, "one warp per query head in the softmax step");
+  constexpr int GP = pow2_ceil(G);        // heads the score step's reduction carries
+  static_assert(G <= kWarps && GP <= LPS, "one warp per query head in the softmax step");
   static_assert(kTile == 32 && kTile % SPP == 0 && kTile % TPU == 0, "tile shape");
   static_assert(kPosCap / kTile <= 32 && kThreads % kTile == 0, "one warp lists the tiles");
   static_assert(TPU * G * D * 4 <= NST * L::kTileBytes, "the p * V partials reuse the stage");
@@ -292,9 +298,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
 #pragma unroll
       for (int j = grp; j < kTile; j += SPP) {
         const T* krow = reinterpret_cast<const T*>(sk + j * L::kRowBytes);
-        float sc[G];
+        float sc[GP];
 #pragma unroll
-        for (int g = 0; g < G; ++g) sc[g] = 0.f;
+        for (int g = 0; g < GP; ++g) sc[g] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < KK; ++kk) {
           float kv[VEC];
@@ -304,10 +310,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
 #pragma unroll
             for (int e = 0; e < VEC; ++e) sc[g] = fmaf(qr[g][kk][e], kv[e], sc[g]);
         }
-        const float tot = reduce_group<G, LPS>(sc, sub);
-        if (sub % (LPS / G) == 0) {
+        const float tot = reduce_group<GP, LPS>(sc, sub);
+        const int head = sub / (LPS / GP);
+        if (sub % (LPS / GP) == 0 && head < G) {
           const int w = t * kTile + j;
-          s_p[(sub / (LPS / G)) * kTile + j] = (w < wn && s_keep[w]) ? tot : -INFINITY;
+          s_p[head * kTile + j] = (w < wn && s_keep[w]) ? tot : -INFINITY;
         }
       }
       __syncthreads();
@@ -468,6 +475,7 @@ int dispatch_group(const Request& r, int group) {
   switch (group) {
     case 1: return run<T, D, 1>(r);
     case 2: return run<T, D, 2>(r);
+    case 3: return run<T, D, 3>(r);
     case 4: return run<T, D, 4>(r);
     case 8: return run<T, D, 8>(r);
     default: return -1;

@@ -29,7 +29,7 @@ MIN_SPLIT_LEN = 16
 BLOCKS_PER_SM = 2
 #: the instances the CUDA source is compiled for
 HEAD_DIMS = (64, 128, 256)
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 3, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fns = None

@@ -28,6 +28,8 @@
 //   * Forward: a block serves all G query heads of one kv head: its M rows
 //     (M/G positions x G heads, M = 128 where the grid fills the card, else
 //     64) are 16 per warp, so each K/V tile is loaded once for the group.
+//     Where G does not divide M (G 3: 42 positions in 128 rows) the last
+//     M % G rows are spare and masked (`Rows::span`).
 //     S stays in registers; the online softmax (fp32, log2 domain, scores
 //     scaled by scale*log2(e) after the product) runs on the accumulator
 //     fragments, and P is rounded to bf16 in registers and fed as the A
@@ -98,14 +100,22 @@ struct FlashArgs {
 namespace {
 
 // Row r of a tile is position pos0 + r / grp of head head0 + r % grp (grp is
-// G for query rows, 1 for key rows); positions >= limit read as zero.
+// G for query rows, 1 for key rows); positions >= limit read as zero.  A
+// query tile of M rows holds span = M / G positions: where G does not divide
+// M (G 3: 42 positions in 128 rows, 10 in 32) the rows from span * G on are
+// spare.  A spare row reads as position `limit`: it is zero-filled, never
+// stored, and its lse is +inf, so that it adds nothing to dK and dV.
 struct Rows {
   long long base;
   int pos0, head0, grp, limit;
   long long s_s, s_h;
+  int span = 1 << 30;  // positions of the tile (key tiles: no spare rows)
 };
 
-__device__ __forceinline__ int row_pos(const Rows& m, int r) { return m.pos0 + r / m.grp; }
+__device__ __forceinline__ int row_pos(const Rows& m, int r) {
+  const int p = r / m.grp;
+  return p < m.span ? m.pos0 + p : m.limit;
+}
 
 // dst[d * ld + r] = mul * row_r[d] for the `rows` rows of a tile: 16-byte
 // loads along d, consecutive threads on consecutive rows (conflict-free
@@ -191,7 +201,7 @@ __global__ void __launch_bounds__(M * 4) flash_fwd_kernel(const FlashArgs a) {
   const int G = a.group, hq = a.n_kv_heads * G;
   const int q0 = blockIdx.x * (M / G);
 
-  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2]};
+  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2], M / G};
   load_t<D, NT>(Qt, M, M, q, qrows, a.scale * kLog2e);
 
   int qpos[4];
@@ -370,10 +380,10 @@ __global__ void __launch_bounds__(BKV * 4) flash_bwd_dkv_kernel(const FlashArgs 
 
   for (int q0 = (q_lo / bq) * bq; q0 <= q_hi; q0 += bq) {
     __syncthreads();  // the previous q tile is consumed
-    const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2]};
+    const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2], bq};
     load_t<D, NT>(Qt, LDQ, kMR, q, qrows, 1.f);
     load_t<D, NT>(Ot, LDQ, kMR, dout,
-                     Rows{b * a.do_s[0], q0, h * G, G, a.seq_q, a.do_s[1], a.do_s[2]}, 1.f);
+                     Rows{b * a.do_s[0], q0, h * G, G, a.seq_q, a.do_s[1], a.do_s[2], bq}, 1.f);
     load_row_stats(a, qrows, kMR, b, lse2, dl);
     __syncthreads();
 
@@ -468,10 +478,10 @@ __global__ void __launch_bounds__(M * 4) flash_bwd_dq_kernel(const FlashArgs a) 
   const int q0 = blockIdx.x * (M / G);
   const float c2 = a.scale * kLog2e;
 
-  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2]};
+  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2], M / G};
   load_t<D, NT>(Qt, M, M, static_cast<const float*>(a.q), qrows, 1.f);
   load_t<D, NT>(Ot, M, M, static_cast<const float*>(a.dout),
-                   Rows{b * a.do_s[0], q0, h * G, G, a.seq_q, a.do_s[1], a.do_s[2]}, 1.f);
+                   Rows{b * a.do_s[0], q0, h * G, G, a.seq_q, a.do_s[1], a.do_s[2], M / G}, 1.f);
   load_row_stats(a, qrows, M, b, lse2, dl);
 
   int qpos[4];
@@ -719,7 +729,7 @@ __global__ void __launch_bounds__(M * 2, D <= 128 ? 2 : 1) flash_fwd_mma_kernel(
   const int q0 = blockIdx.x * (M / G);
   const float c2 = a.scale * kLog2e;
 
-  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2]};
+  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2], M / G};
   load_rows<D, C::NT>(Qs, M, q, qrows);
   cp_async_commit();
   int k_first, k_last;
@@ -733,7 +743,7 @@ __global__ void __launch_bounds__(M * 2, D <= 128 ? 2 : 1) flash_fwd_mma_kernel(
   cp_async_commit();
 
   const int r0 = warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
-  const int qpos[2] = {q0 + r0 / G, q0 + (r0 + 8) / G};
+  const int qpos[2] = {row_pos(qrows, r0), row_pos(qrows, r0 + 8)};
   const int w_lo = q0 + warp * 16 / G;
   const int w_hi = min(q0 + (warp * 16 + 15) / G, a.seq_q - 1);
   const bf16* Qw = Qs + warp * 16 * LD;
@@ -880,10 +890,10 @@ __global__ void __launch_bounds__(M * 2, D <= 80 ? 2 : 1) flash_bwd_dq_mma_kerne
   const int q0 = blockIdx.x * (M / G);
   const float c2 = a.scale * kLog2e;
 
-  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2]};
+  const Rows qrows{b * a.q_s[0], q0, h * G, G, a.seq_q, a.q_s[1], a.q_s[2], M / G};
   load_rows<D, C::NT>(Qs, M, static_cast<const bf16*>(a.q), qrows);
   load_rows<D, C::NT>(Os, M, static_cast<const bf16*>(a.dout),
-                      Rows{b * a.do_s[0], q0, h * G, G, a.seq_q, a.do_s[1], a.do_s[2]});
+                      Rows{b * a.do_s[0], q0, h * G, G, a.seq_q, a.do_s[1], a.do_s[2], M / G});
   int k_first, k_last;
   key_range<BK>(a, q0, min(q0 + M / G, a.seq_q) - 1, k_first, k_last);
   auto load_kv = [&](int k0, int stage) {
@@ -895,7 +905,7 @@ __global__ void __launch_bounds__(M * 2, D <= 80 ? 2 : 1) flash_bwd_dq_mma_kerne
   cp_async_commit();
 
   const int r0 = warp * 16 + lane / 4;
-  const int qpos[2] = {q0 + r0 / G, q0 + (r0 + 8) / G};
+  const int qpos[2] = {row_pos(qrows, r0), row_pos(qrows, r0 + 8)};
   float lse2[2], dl[2];
   row_stats(a, qrows, r0, b, lse2[0], dl[0]);
   row_stats(a, qrows, r0 + 8, b, lse2[1], dl[1]);
@@ -1001,13 +1011,13 @@ __global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
   const int q_first = (q_lo / bq) * bq;
 
   auto qtile = [&](int qs) {
-    return Rows{b * a.q_s[0], qs, h * G, G, a.seq_q, a.q_s[1], a.q_s[2]};
+    return Rows{b * a.q_s[0], qs, h * G, G, a.seq_q, a.q_s[1], a.q_s[2], bq};
   };
   auto load_q = [&](int qs, int stage) {
     bf16* qd = QO + stage * 2 * MR * LD;
     load_rows<D, C::NT>(qd, MR, q, qtile(qs));
     load_rows<D, C::NT>(qd + MR * LD, MR, dout,
-                        Rows{b * a.do_s[0], qs, h * G, G, a.seq_q, a.do_s[1], a.do_s[2]});
+                        Rows{b * a.do_s[0], qs, h * G, G, a.seq_q, a.do_s[1], a.do_s[2], bq});
   };
   if (q_first <= q_hi) {
     load_q(q_first, 0);
@@ -1051,7 +1061,7 @@ __global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = 8 * n + 2 * (lane % 4) + (e & 1);
-          float p = exp2f(st[n][e] * c2 - lse2[r]);
+          float p = exp2f(st[n][e] * c2 - lse2[r]);  // 0 on a spare row (lse2 +inf)
           if (partial && !keep(a, qs + r / G, kpos[e / 2])) p = 0.f;
           st[n][e] = p;
           dpt[n][e] = p * (dpt[n][e] - dl[r]);  // dS^T, unscaled

@@ -20,7 +20,7 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 #: the instances the CUDA source is compiled for
 HEAD_DIMS = (64, 80, 128, 256)
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 3, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _Strides = ctypes.c_longlong * 3

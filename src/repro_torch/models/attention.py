@@ -7,6 +7,12 @@ kernels, forward and backward.  A single-token decode step goes through the
 hand-written decode-attention kernel, which is given each cache slot's
 absolute position, so a sliding-window ring that has wrapped is masked by
 position and agrees with ``gqa_attention``.
+
+An int8 KV cache (``cfg.kv_cache_dtype == "int8"``) holds K and V quantised
+per token and per head, with their fp32 scales beside them (``k_scale``,
+``v_scale``), as the JAX package's does; each step dequantises the whole
+cache to the compute dtype and hands it to the decode kernel, as JAX hands
+its dequantised cache to the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -68,6 +74,20 @@ def gqa_attention(
     return out.reshape(b, sq, hq, d)
 
 
+# ------------------------------------------------------------ int8 cache
+def quantize_int8(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last dim: (int8 values, fp32 scales [...]),
+    scale = max |t| / 127 floored at 1e-8, values rounded half to even."""
+    tf = t.float()
+    scale = (tf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    return torch.round(tf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
+
+
+def dequantize_int8(t: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 values times their scales, in fp32, rounded to ``dtype``."""
+    return (t.float() * scale.float()[..., None]).to(dtype)
+
+
 # ------------------------------------------------------------ block apply
 def attention_block(
     params: Dict,
@@ -105,14 +125,18 @@ def attention_block(
         raise ValueError(
             "cached attention decodes one token at a given cache_index and positions_k"
         )
-    if cache["k"].dtype == torch.int8:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     write_idx = cache_index % cache["k"].shape[1]
-    cache["k"][:, write_idx] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, write_idx] = v[:, 0].to(cache["v"].dtype)
-    out = decode_attention(
-        q, cache["k"], cache["v"], positions[:, 0], positions_k, window=window
-    )
+    if cache["k"].dtype == torch.int8:
+        cdt = dt(cfg.compute_dtype)
+        for name, t in (("k", k), ("v", v)):
+            cache[name][:, write_idx], cache[f"{name}_scale"][:, write_idx] = quantize_int8(t[:, 0])
+        ck = dequantize_int8(cache["k"], cache["k_scale"], cdt)
+        cv = dequantize_int8(cache["v"], cache["v_scale"], cdt)
+    else:
+        cache["k"][:, write_idx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, write_idx] = v[:, 0].to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+    out = decode_attention(q, ck, cv, positions[:, 0], positions_k, window=window)
     return dense(out.reshape(b, s, cfg.n_heads * hd), params["o"]), cache
 
 

@@ -1,0 +1,140 @@
+"""Mixture-of-Experts MLP with top-k routing, capacity-based token dropping
+and sort-based dispatch: the counterpart of ``repro.models.moe``'s local
+path.
+
+The routing math is the JAX package's: the router in fp32, softmax, top-k,
+the gates renormalised, a Switch-style aux loss from the top-1 choice; each
+expert takes at most ``_capacity`` tokens, in token order, and the rest of
+its (token, expert) pairs are dropped.  Dispatch sorts the flattened expert
+ids (a stable sort, so tokens keep their priority within an expert) and
+gathers tokens into per-expert capacity buffers; no [T, E, C] one-hot is
+built.  The expert FFN is three batched products over [E, C, d], which the
+JAX package leaves to XLA's einsums, here to ``torch.bmm``.  ``T`` and the
+capacity are Python ints taken from shapes, so nothing here waits on the
+device.
+
+The parameter tree is the JAX package's (``router/w`` fp32 [d, E],
+``gate``/``up`` [E_pad, d, f], ``down`` [E_pad, f, d]), so checkpoints cross
+over unchanged.  The expert-parallel path (``moe_mlp_ep``) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .layers import _normal, dt, init_dense
+
+
+def _moe(cfg: ModelConfig):
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.name} has no MoE config")
+    return cfg.moe
+
+
+def padded_experts(cfg: ModelConfig, ep: int) -> int:
+    """Experts rounded up to a multiple of the expert-parallel width ``ep``
+    (the padding experts are never routed to)."""
+    e = _moe(cfg).n_experts
+    return e if e % ep == 0 else e + (ep - e % ep)
+
+
+# ----------------------------------------------------------------- params
+def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Dict:
+    """One MoE layer's params (``lead`` stacks them), with no padding
+    experts: the JAX tree at expert-parallel width 1."""
+    m = _moe(cfg)
+    d, f = cfg.d_model, m.d_ff_expert
+    e_pad = padded_experts(cfg, 1)
+    pdt = dt(cfg.param_dtype)
+
+    def expert_mat(d_in, d_out):
+        return _normal(gen, (*lead, e_pad, d_in, d_out), d_in**-0.5, pdt)
+
+    return {
+        "router": init_dense(gen, d, m.n_experts, torch.float32, lead=lead),
+        "gate": expert_mat(d, f),
+        "up": expert_mat(d, f),
+        "down": expert_mat(f, d),
+    }
+
+
+# ---------------------------------------------------------- local dispatch
+def _route(
+    x_flat: torch.Tensor, params: Dict, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router: (top-k gates renormalised [T, k], expert ids [T, k], aux)."""
+    m = _moe(cfg)
+    logits = x_flat.float() @ params["router"]["w"].float()  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, m.top_k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Switch-style aux loss: E * sum_e (token_frac_e * prob_mass_e)
+    token_frac = F.one_hot(expert_idx[:, 0], m.n_experts).float().mean(0)
+    prob_mass = probs.mean(0)
+    aux = m.n_experts * (token_frac * prob_mass).sum()
+    return gate_vals, expert_idx, aux
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    m = _moe(cfg)
+    c = int(m.capacity_factor * n_tokens * m.top_k / m.n_experts)
+    return max(8, -(-c // 8) * 8)  # round up to 8
+
+
+def _dispatch_tables(
+    expert_idx: torch.Tensor,  # [T, k]
+    n_tokens: int,
+    e_pad: int,
+    cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based slot assignment.
+
+    Returns (slot_table [e_pad*cap] int32 of token ids (n_tokens == empty),
+             token_slots [T, k] int32 of slot ids (e_pad*cap == dropped))."""
+    t, k = expert_idx.shape
+    dev = expert_idx.device
+    eflat = expert_idx.reshape(-1)  # [T*k]
+    order = torch.argsort(eflat, stable=True)  # token priority within an expert
+    sorted_e = eflat[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e_pad, device=dev, dtype=sorted_e.dtype))
+    pos = torch.arange(t * k, device=dev) - starts[sorted_e]
+    slot_sorted = torch.where(pos < cap, sorted_e * cap + pos, e_pad * cap)
+    token_sorted = order // k
+    # every dropped pair writes the extra last slot, which is sliced off
+    slot_table = torch.full((e_pad * cap + 1,), n_tokens, dtype=torch.int32, device=dev)
+    slot_table[slot_sorted] = token_sorted.to(torch.int32)
+    token_slots = torch.empty(t * k, dtype=torch.int32, device=dev)
+    token_slots[order] = slot_sorted.to(torch.int32)
+    return slot_table[:-1], token_slots.reshape(t, k)
+
+
+def _expert_ffn(expert_in: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU of each expert over its capacity buffer: [E, C, d] -> [E, C, d]."""
+    cdt = dt(cfg.compute_dtype)
+    g = torch.bmm(expert_in, params["gate"].to(cdt))
+    u = torch.bmm(expert_in, params["up"].to(cdt))
+    h = F.silu(g.float()).to(cdt) * u
+    return torch.bmm(h, params["down"].to(cdt))
+
+
+def moe_mlp_local(
+    params: Dict, x: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-device MoE.  x: [B, S, d] -> ([B, S, d], aux loss scalar)."""
+    b, s, d = x.shape
+    t = b * s
+    e_pad = params["gate"].shape[0]
+    x_flat = x.reshape(t, d)
+    gates, expert_idx, aux = _route(x_flat, params, cfg)
+    cap = _capacity(t, cfg)
+    slot_table, token_slots = _dispatch_tables(expert_idx, t, e_pad, cap)
+    zero_row = x.new_zeros((1, d))
+    expert_in = torch.cat([x_flat, zero_row])[slot_table].reshape(e_pad, cap, d)
+    expert_out = _expert_ffn(expert_in, params, cfg)
+    out_pad = torch.cat([expert_out.reshape(e_pad * cap, d), zero_row])
+    y = (out_pad[token_slots] * gates[..., None].to(x.dtype)).sum(dim=1)
+    return y.reshape(b, s, d), aux

@@ -2,8 +2,9 @@
 
 ``build_model(cfg, device=...)`` returns a :class:`ModelApi` of plain
 functions bound to the config and the device.  The port covers the dense,
-VLM, SSM (mamba2) and hybrid (zamba2) families; MoE and the
-encoder-decoder family raise ``NotImplementedError``.  ``batch_spec``
+VLM, MoE, SSM (mamba2) and hybrid (zamba2) families; the encoder-decoder
+family raises ``NotImplementedError``.  ``init_cache`` keeps the KV cache in
+``cfg.kv_cache_dtype`` (the compute dtype, or int8 with scales).  ``batch_spec``
 describes the model inputs per shape kind (train / prefill / decode) as
 (shape, torch dtype) pairs, as the JAX package's does.
 """

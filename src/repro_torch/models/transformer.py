@@ -11,9 +11,14 @@ with ``remat`` each group is a non-reentrant ``torch.utils.checkpoint``
 
 "mamba" blocks are the Mamba2 mixer of :mod:`.mamba2` (no MLP).  A
 "shared_attn" block (zamba2) applies the ONE parameter set ``params["shared"]``
-at every occurrence, each occurrence with its own KV cache.  MoE blocks and
-the encoder-decoder family are not ported yet and raise
-``NotImplementedError``.
+at every occurrence, each occurrence with its own KV cache.  "moe" and
+"swa_moe" blocks replace the dense MLP with :func:`.moe.moe_mlp_local` and
+add its router aux loss to the model's, which ``forward(return_aux=True)``
+returns and ``loss_fn`` weighs in.  The encoder-decoder family is not ported
+yet and raises ``NotImplementedError``.
+
+The KV cache is kept in the compute dtype or, with ``cfg.kv_cache_dtype ==
+"int8"``, as int8 with per-token, per-head scales (:mod:`.attention`).
 """
 
 from __future__ import annotations
@@ -38,16 +43,19 @@ from .layers import (
     unembed,
 )
 from .mamba2 import init_mamba_block, init_mamba_cache, mamba_block, mamba_decode_step
+from .moe import init_moe, moe_mlp_local
 
-PORTED_KINDS = ("attn", "global", "swa", "mamba", "shared_attn")
+PORTED_KINDS = ("attn", "global", "swa", "moe", "swa_moe", "mamba", "shared_attn")
+MOE_KINDS = ("moe", "swa_moe")
+SWA_KINDS = ("swa", "swa_moe")
 
 
 def _kind_window(kind: str, cfg: ModelConfig) -> Optional[int]:
-    return cfg.sliding_window if kind == "swa" else None
+    return cfg.sliding_window if kind in SWA_KINDS else None
 
 
 def _kind_theta(kind: str, cfg: ModelConfig) -> float:
-    if kind == "swa" and cfg.rope_theta_local:
+    if kind in SWA_KINDS and cfg.rope_theta_local:
         return cfg.rope_theta_local
     return cfg.rope_theta
 
@@ -81,12 +89,16 @@ def init_block(
             "ln1": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
             "mamba": init_mamba_block(gen, cfg, lead),
         }
-    return {
+    block = {
         "ln1": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
         "attn": init_attention(gen, cfg, lead),
         "ln2": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
-        "mlp": init_mlp(gen, cfg, lead),
     }
+    if kind in MOE_KINDS:
+        block["moe"] = init_moe(gen, cfg, lead)
+    else:
+        block["mlp"] = init_mlp(gen, cfg, lead)
+    return block
 
 
 def init_lm(cfg: ModelConfig, device, seed: int = 0) -> Dict:
@@ -153,14 +165,14 @@ def apply_block(
     tables: Dict,
     cache: Optional[Dict] = None,
     cache_index: Optional[int] = None,
-) -> torch.Tensor:
-    """One block; returns the new residual stream (a cache is written in
-    place)."""
+) -> Tuple[torch.Tensor, Any]:
+    """One block; returns (the new residual stream, its MoE aux loss: a
+    scalar tensor for an MoE block, else 0.0).  A cache is written in place."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == "mamba":
         if cache is not None:
-            return x + mamba_decode_step(bp["mamba"], h, cache, cfg)
-        return x + mamba_block(bp["mamba"], h, cfg)[0]
+            return x + mamba_decode_step(bp["mamba"], h, cache, cfg), 0.0
+        return x + mamba_block(bp["mamba"], h, cfg)[0], 0.0
     attn_out, _ = attention_block(
         bp["attn"],
         h,
@@ -175,7 +187,10 @@ def apply_block(
     )
     x = x + attn_out
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + mlp(h, bp["mlp"], cfg)
+    if kind in MOE_KINDS:
+        ff, aux = moe_mlp_local(bp["moe"], h, cfg)
+        return x + ff, aux
+    return x + mlp(h, bp["mlp"], cfg), 0.0
 
 
 def _apply_pattern(
@@ -188,13 +203,15 @@ def _apply_pattern(
     shared: Optional[Dict] = None,
     caches: Optional[Dict] = None,
     cache_index: Optional[int] = None,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Any]:
+    aux = 0.0
     for i, kind in enumerate(kinds):
         # a shared_attn block runs the model's one shared parameter set
         bp = shared if kind == "shared_attn" else gp[f"pos{i}"]
         cache_i = caches[f"pos{i}"] if caches is not None else None
-        x = apply_block(kind, bp, x, positions, cfg, tables, cache_i, cache_index)
-    return x
+        x, a = apply_block(kind, bp, x, positions, cfg, tables, cache_i, cache_index)
+        aux = aux + a
+    return x, aux
 
 
 def _apply_stack(
@@ -205,34 +222,37 @@ def _apply_stack(
     cache: Optional[Dict] = None,
     cache_index: Optional[int] = None,
     remat: bool = False,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Any]:
     """All blocks: the stacked groups in order (each checkpointed with
-    ``remat``), then the tail."""
+    ``remat``), then the tail; returns (x, the summed MoE aux loss, 0.0
+    without MoE blocks)."""
     tables = _tables(x, positions, cfg, cache, cache_index)
     shared = params.get("shared")
     pat = cfg.pattern
     g = cfg.n_layers // len(pat)
+    aux = 0.0
     for i in range(g):
         gp = _group_slice(params["groups"], i)
         if remat:
-            x = checkpoint(
+            x, a = checkpoint(
                 _apply_pattern, x, gp, pat, positions, cfg, tables, shared, use_reentrant=False
             )
-            continue
-        x = _apply_pattern(
-            x,
-            gp,
-            pat,
-            positions,
-            cfg,
-            tables,
-            shared,
-            _group_slice(cache["groups"], i) if cache is not None else None,
-            cache_index,
-        )
+        else:
+            x, a = _apply_pattern(
+                x,
+                gp,
+                pat,
+                positions,
+                cfg,
+                tables,
+                shared,
+                _group_slice(cache["groups"], i) if cache is not None else None,
+                cache_index,
+            )
+        aux = aux + a
     tail_kinds = cfg.layer_kinds()[g * len(pat) :]
     if tail_kinds:
-        x = _apply_pattern(
+        x, a = _apply_pattern(
             x,
             params["tail"],
             tuple(tail_kinds),
@@ -243,7 +263,8 @@ def _apply_stack(
             cache["tail"] if cache is not None else None,
             cache_index,
         )
-    return x
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------- forward
@@ -255,26 +276,31 @@ def forward(
     last_only: bool = False,
     return_hidden: bool = False,
     remat: bool = False,
-) -> torch.Tensor:
+    return_aux: bool = False,
+):
     """Teacher-forced forward; returns logits [B, S_total, V].
 
     ``last_only``: unembed only the final position.  ``return_hidden``: skip
     unembedding and return the final-norm hidden states.  ``remat``:
-    checkpoint each stacked group.  (The JAX function also returns an MoE aux
-    loss, which is always 0 for these families.)"""
+    checkpoint each stacked group.  ``return_aux``: return (logits or
+    hidden, the MoE aux loss summed over the layers), as the JAX function
+    always does (an fp32 zero without MoE blocks)."""
     check_supported(cfg)
     x = embed(tokens, params["embed"], cfg)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    x = _apply_stack(params, x, positions, cfg, remat=remat)
+    x, aux = _apply_stack(params, x, positions, cfg, remat=remat)
     if last_only:
         x = x[:, -1:, :].contiguous()
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if return_hidden:
-        return x
-    return unembed(x, params["embed"], cfg)
+    out = x if return_hidden else unembed(x, params["embed"], cfg)
+    if not return_aux:
+        return out
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return out, aux
 
 
 def loss_fn(
@@ -284,17 +310,18 @@ def loss_fn(
     remat: bool = True,
     ce_chunk: int = 512,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE (+ MoE aux, 0 for these families); batch: tokens/labels
-    [B, S] (+ optional prefix_embeds, loss_mask).  The CE runs chunk by
-    chunk over the sequence, so [B, S, V] logits are never materialized.
-    Returns (loss, {"ce", "aux", "loss"})."""
-    hidden = forward(
+    """Next-token CE + router_aux_coef x the MoE aux loss; batch:
+    tokens/labels [B, S] (+ optional prefix_embeds, loss_mask).  The CE runs
+    chunk by chunk over the sequence, so [B, S, V] logits are never
+    materialized.  Returns (loss, {"ce", "aux", "loss"})."""
+    hidden, aux = forward(
         params,
         batch["tokens"],
         cfg,
         prefix_embeds=batch.get("prefix_embeds"),
         return_hidden=True,
         remat=remat,
+        return_aux=True,
     )
     labels = batch["labels"]
     if hidden.shape[1] != labels.shape[1]:  # vlm: loss only on text positions
@@ -302,7 +329,6 @@ def loss_fn(
     ce = chunked_cross_entropy(
         hidden, params["embed"], cfg, labels, batch.get("loss_mask"), ce_chunk
     )
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
     loss = ce + coef * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
@@ -316,15 +342,22 @@ def _init_block_cache(
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     if kind == "mamba":
         return init_mamba_cache(cfg, batch, device, lead)
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     # SWA blocks never attend beyond their window -> a ring buffer of window
     # length (5/6 of gemma3's layers); a shared_attn occurrence keeps a
     # full-length cache of its own
     length = max_len
-    if kind == "swa":
+    if kind in SWA_KINDS:
         length = min(max_len, cfg.sliding_window)
     shape = (*lead, batch, length, cfg.n_kv_heads, cfg.head_dim_)
+    if cfg.kv_cache_dtype == "int8":
+        # per-token, per-head symmetric int8 with fp32 scales beside it
+        scales = (*lead, batch, length, cfg.n_kv_heads)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(scales, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(scales, dtype=torch.float32, device=device),
+        }
     cdt = dt(cfg.compute_dtype)
     return {
         "k": torch.zeros(shape, dtype=cdt, device=device),
@@ -364,6 +397,6 @@ def decode_step(
     x = embed(tokens, params["embed"], cfg)
     b = x.shape[0]
     positions = torch.full((b, 1), pos_index, dtype=torch.int32, device=x.device)
-    x = _apply_stack(params, x, positions, cfg, cache, pos_index)
+    x, _ = _apply_stack(params, x, positions, cfg, cache, pos_index)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, params["embed"], cfg), cache

@@ -3,7 +3,10 @@
 ``serve_step`` -- one new token for every sequence of the batch against the
 KV/SSM cache -- is the serving hot path: each step runs every attention
 layer through the decode-attention kernel, every mamba layer through its
-O(1) state update, and every norm through the rmsnorm kernel.  The prompt is
+O(1) state update, every MoE layer through its router and sort-based
+dispatch, and every norm through the rmsnorm kernel.  The cache's dtype
+comes from the config (``kv_cache_dtype``: bf16, or int8 with scales), as in
+the JAX engine.  The prompt is
 fed token by token, as the JAX engine does, so serving never runs the SSD
 chunk scan; the teacher-forced ``forward`` (and its ``last_only`` prefill
 form) does.

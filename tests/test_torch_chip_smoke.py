@@ -79,6 +79,12 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     # one group of the 6-block pattern plus a tail of 2 mamba blocks
     tiny_zamba = dataclasses.replace(
         base.reduced(registry.get_config("zamba2-1.2b")), name="tiny-zamba", n_layers=8, **bf16)
+    # granite's GQA group of 3; every expert chosen (top 4 of 4), so that
+    # the int8 cache's noise cannot flip a router choice at this size
+    tiny_moe = dataclasses.replace(
+        base.reduced(registry.get_config("granite-moe-3b-a800m")), name="tiny-moe", n_heads=6,
+        n_kv_heads=2, moe=base.MoEConfig(n_experts=4, top_k=4, d_ff_expert=32), **bf16)
+    monkeypatch.setitem(registry.ARCHS, "tiny-moe", tiny_moe)
     monkeypatch.setitem(registry.ARCHS, "tiny-mamba", tiny_mamba)
     monkeypatch.setitem(registry.ARCHS, "tiny-zamba", tiny_zamba)
     monkeypatch.setitem(registry.ARCHS, "tiny", tiny)
@@ -103,6 +109,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,
         PILOT_TRAIN_LAYERS=None, PILOT_SERVE_PROMPT_LEN=6, PILOT_SERVE_NEW_TOKENS=3,
         PILOT_SERVE_MAX_LEN=16, PILOT_TIMEOUT_S=120.0,
+        MOE_MODEL="tiny-moe", MOE_PROMPT_LEN=10, MOE_NEW_TOKENS=4, MOE_MAX_LEN=16, MOE_BATCH=2,
+        MOE_CHECK_POSITIONS=(0, 5, 9, 12),
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -179,7 +187,16 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     dec = kernels["decode_attention"]["cases"]
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
     assert [(c["plan"]["n_split"], c["plan"]["split_len"]) for c in dec] == [
-        (16, 32), (16, 32), (16, 64), (16, 64), (2, 256)]
+        (16, 32), (16, 32), (16, 64), (16, 64), (2, 256), (8, 64), (4, 128)]
+    # moe: two engines (bf16 and int8 caches) of 13 steps over 2 layers, and
+    # the drop-free and the published-capacity forwards (a third drop-free
+    # one when the int8 engine's tokens differ)
+    moe = {name: k["launches_by_path"]["moe"] for name, k in kernels.items()}
+    n_fwd = moe["flash_attention"] // 2
+    assert n_fwd in (2, 3)
+    assert moe == {"decode_attention": 2 * 2 * 13, "rmsnorm": 2 * 5 * 13 + 5 * n_fwd,
+                   "flash_attention": 2 * n_fwd, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                   "rmsnorm_residual": 0, "ssd_scan": 0}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",
             "launches_by_path"}

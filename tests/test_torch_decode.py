@@ -5,7 +5,8 @@ fold, and ``decode_attention_split_ref`` is the kernel's order of work in
 plain PyTorch (split by split, 32-slot tiles, the partials folded in cluster
 rank order).  At the main path's plans it is held against the plain version
 ``decode_attention_ref`` and, where the Pallas kernel can express the mask
-(no wrapped ring), against the Pallas kernel in interpret mode.
+(no wrapped ring), against the Pallas kernel in interpret mode; GQA groups
+1, 3 (granite-moe-3b-a800m) and 4.
 
 Tolerance: fp32, max error over the reference's magnitude below 1e-4 (the
 same sums taken in another order)."""
@@ -49,6 +50,8 @@ def test_split_plan_covers_the_cache(b, hkv, sk, sms):
     ((4, 1, 1024), (16, 64)),  # gemma3-1b global layer
     ((8, 1, 1024), (16, 64)),
     ((4, 32, 512), (2, 256)),  # zamba2-1.2b shared attention
+    ((4, 8, 512), (8, 64)),  # granite-moe-3b-a800m (24/8 heads)
+    ((8, 8, 512), (4, 128)),
 ])
 def test_split_plan_of_the_main_path(shape, plan):
     assert split_plan(*shape, SMS) == plan
@@ -69,6 +72,10 @@ PALLAS_PLANS = [
     ("gemma3-1b global", (4, 1), 4, 1024, 1, 4, 256, None, [543, 543, 100, 1023]),
     ("gemma3-1b ring", (4, 1), 4, 512, 1, 4, 256, 512, [500, 511, 31, 300]),
     ("zamba2-1.2b", (4, 32), 2, 512, 4, 1, 64, None, [511, 200]),
+    # granite's plan and group of 3 (the kernel carries it as 4 lanes), at
+    # fewer kv heads; splits 5-7 hold only slots past the second query
+    ("granite-moe G 3", (4, 8), 2, 512, 2, 3, 64, None, [278, 300]),
+    ("granite-moe G 3, window", (4, 8), 2, 512, 2, 3, 64, 100, [278, 511]),
 ]
 
 

@@ -115,9 +115,18 @@ def test_pilot_trainer_and_serve_cu_on_cuda_raise_without_cuda(monkeypatch):
 
 
 def test_unported_families_raise():
-    for name in ("qwen3-moe-30b-a3b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError):
-            build_model(get_config(name + "-smoke"), device="cpu")
-    cfg = dataclasses.replace(get_config("gemma3-1b-smoke"), kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        build_model(cfg, device="cpu").init_cache(1, 8)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_model(get_config("whisper-large-v3-smoke"), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "granite-moe-3b-a800m"])
+def test_moe_models_and_the_int8_cache_build_on_the_cpu(name):
+    cfg = dataclasses.replace(get_config(name + "-smoke"), kv_cache_dtype="int8")
+    api = build_model(cfg, device="cpu")
+    params = api.init(seed=0)
+    assert set(params["groups"]["pos0"]) == {"ln1", "attn", "ln2", "moe"}
+    cache = api.init_cache(2, 8)["groups"]["pos0"]
+    assert {k: v.dtype for k, v in cache.items()} == {
+        "k": torch.int8, "v": torch.int8, "k_scale": torch.float32, "v_scale": torch.float32}
+    logits, _ = api.decode_step(params, api.init_cache(2, 8), torch.ones(2, 1, dtype=torch.long), 0)
+    assert logits.shape == (2, 1, cfg.vocab_size) and bool(logits.isfinite().all())
