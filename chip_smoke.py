@@ -67,11 +67,26 @@ Phases, each of which must pass (any failure exits non-zero):
                 the capacity factor E / k, whose capacity is T (it drops
                 nothing, as decode at 4 tokens never does); the forward at the
                 published factor 1.25 logs the pairs it drops;
-  9. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+  9. moe-train -- granite-moe-3b-a800m at every published width and depth,
+                restored from checkpoint DU files with AdamW state on the
+                device, trained on phase 5's batch and schedule, every plain
+                version refused and the launches exact; then, cut to
+                MOE_REMAT_LAYERS layers, the routing that remat recomputes in
+                the backward pass must be the forward's and the gradients
+                must equal those without remat;
+ 10. whisper -- whisper-large-v3 (32 encoder + 32 decoder layers, bf16, random
+                weights and frames from --seed) from checkpoint DU files: the
+                cross cache filled from 4 x 1500 frames, then DecodeEngine
+                decodes 4 prompt tokens and 124 new (max_len 448), its logits
+                held against the teacher-forced forward; then trained on 8 x
+                448 tokens against 1500 frames each on phase 5's schedule.
+                Every plain version raises, the launches are exact;
+ 11. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
 served model; granite-moe's with its MoE layers' share), of one train step
-and of one mamba2-370m prefill.
+(granite-moe's with its MoE layers' share, and one MoE layer's forward and
+backward timed alone) and of one mamba2-370m prefill.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -143,16 +158,36 @@ MOE_MODEL = "granite-moe-3b-a800m"
 MOE_PROMPT_LEN, MOE_NEW_TOKENS, MOE_MAX_LEN, MOE_BATCH = 256, 24, 512, 4
 MOE_CHECK_POSITIONS = (0, 127, 255, 278)  # the engine decodes positions 0-278
 MOE_INT8_LOGIT_TOL = 0.05  # tests/test_moe_blocked.py's bound on the int8 cache
+# phase 9: MOE_MODEL trained at every width and depth on phase 5's batch and
+# schedule; the remat check (the routing recomputed in the backward pass is
+# the forward's, and remat gradients equal those without remat) runs at
+# MOE_REMAT_LAYERS of the 32 layers, since without remat every layer's
+# activations stay live (~4 GB a layer at 2 x 8192 tokens)
+MOE_REMAT_LAYERS = 4
 
-# phase 3 shapes.  Flash attention: (label, B, S, Hq, Hkv, D, causal, window);
-# the first is the training path's, the others gemma3-1b's teacher-forced
-# forward of phase 4 (5 sliding-window layers : 1 global)
+# phase 10: whisper-large-v3 served (a prompt of 4 tokens fed one at a time
+# and 124 new against 1500 frames, max_len 448: whisper's text context) and
+# trained (8 x 448 tokens against 1500 frames each)
+WHISPER_MODEL = "whisper-large-v3"
+WHISPER_PROMPT_LEN, WHISPER_NEW_TOKENS, WHISPER_MAX_LEN, WHISPER_BATCH = 4, 124, 448, 4
+WHISPER_CHECK_POSITIONS = (0, 3, 64, 127)  # 127: the engine's next step after generate
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 8, 448
+
+# phase 3 shapes.  Flash attention: (label, B, S, Hq, Hkv, D, causal, window),
+# S an int or (Sq, Sk); the first is the training path's, then gemma3-1b's
+# teacher-forced forward of phase 4 (5 sliding-window layers : 1 global),
+# and the other paths' shapes
 FLASH_CASES = [
     ("h2o-danube train", 2, 8192, 32, 8, 80, True, 4096),
     ("gemma3-1b forward, window", 4, 544, 4, 1, 256, True, 512),
     ("gemma3-1b forward, global", 4, 544, 4, 1, 256, True, None),
     ("zamba2-1.2b forward, shared attention", 4, 512, 32, 32, 64, True, None),
     ("granite-moe forward", 4, 280, 24, 8, 64, True, None),  # phase 8's, G 3
+    ("granite-moe train", 2, 8192, 24, 8, 64, True, None),  # phase 9's, G 3
+    # phase 10's training batch: encoder, decoder self- and cross-attention
+    ("whisper encoder", 8, 1500, 20, 20, 64, False, None),
+    ("whisper decoder self", 8, 448, 20, 20, 64, True, None),
+    ("whisper cross", 8, (448, 1500), 20, 20, 64, False, None),
 ]
 FLASH_FP32_CASES = [
     ("fp32 ragged", 2, 300, 8, 2, 80, True, 128),
@@ -169,11 +204,18 @@ RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
                  (4, 1024), (2044, 1024), (32768, 1024),
                  (4, 2048), (2044, 2048), (32768, 2048),
                  (4, 4096), (2044, 4096), (16384, 2560),
-                 (4, 1536), (1120, 1536)]  # granite-moe: a decode step, phase 8's forward
+                 (4, 1536), (1120, 1536),  # granite-moe: a decode step, phase 8's forward
+                 (16384, 1536),  # granite-moe training (phase 9)
+                 # whisper (phase 10): a decode step, the serve forward's decoder
+                 # (4 x 128) and encoder (4 x 1500) and the training batch's
+                 # decoder (8 x 448) and encoder (8 x 1500)
+                 (4, 1280), (512, 1280), (6000, 1280), (3584, 1280), (12000, 1280)]
 RMSNORM_RESIDUAL_CASES = [(4, 1152), (8, 1152), (4096, 1152)]
 # RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
-# step's, 2176 x 1152 gemma3-1b's forward
-RMSNORM_BWD_CASES = [(16384, 2560), (4, 2560), (2176, 1152)]
+# step's, 2176 x 1152 gemma3-1b's forward; then phase 9's and phase 10's
+# training batches (whisper's decoder, then its encoder)
+RMSNORM_BWD_CASES = [(16384, 2560), (4, 2560), (2176, 1152),
+                     (16384, 1536), (3584, 1280), (12000, 1280)]
 # decode attention: (label, B, slots, Hq, Hkv, D, window, position); the first
 # is gemma3-1b's SWA ring wrapped at the last position of the serve phase
 DECODE_CASES = [
@@ -185,6 +227,10 @@ DECODE_CASES = [
     # granite-moe-3b-a800m (G 3) at phase 8's last decode step
     ("granite-moe", 4, 512, 24, 8, 64, None, 278),
     ("granite-moe", 8, 512, 24, 8, 64, None, 278),
+    # whisper-large-v3 at phase 10's last decode step: the self cache, and
+    # the cross cache, whose query and slots are all at position 0 (None)
+    ("whisper self", 4, 448, 20, 20, 64, None, 127),
+    ("whisper cross", 4, 1500, 20, 20, 64, None, None),
 ]
 # SSD chunk scan: (label, B, S, H, P, N, G, dtype, initial state); the timed
 # cases are the mamba2 prefill and the phase 6 forwards, the edge cases are
@@ -449,9 +495,13 @@ def decode_cases(torch, timer, gen):
                 return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
 
             q, k, v = rnd(b, 1, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
-            slots = torch.arange(sk, device=DEVICE, dtype=torch.int32)
-            pos_k = (pos - torch.remainder(pos - slots, sk))[None].expand(b, sk)
-            pos_q = torch.full((b,), pos, device=DEVICE, dtype=torch.int32)
+            if pos is None:  # cross-attention: the query and every slot at position 0
+                pos_k = torch.zeros((1, sk), device=DEVICE, dtype=torch.int32).expand(b, sk)
+                pos_q = torch.zeros((b,), device=DEVICE, dtype=torch.int32)
+            else:
+                slots = torch.arange(sk, device=DEVICE, dtype=torch.int32)
+                pos_k = (pos - torch.remainder(pos - slots, sk))[None].expand(b, sk)
+                pos_q = torch.full((b,), pos, device=DEVICE, dtype=torch.int32)
             out = ops.decode_attention(q, k, v, pos_q, pos_k, window=window)
             ref = decode_attention_ref(q[:, 0], k, v, pos_q, pos_k, window=window)[:, None]
             sync(torch)
@@ -540,15 +590,16 @@ def rmsnorm_cases(torch, timer, gen, residual: bool):
     return cases
 
 
-def kept_pairs(s: int, causal: bool, window) -> int:
-    """(query, key) pairs that the mask keeps in one (batch, head) of a
-    self-attention of length s: the work a kernel that skips the rest does."""
+def kept_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs that the mask keeps in one (batch, head) of an
+    attention of sq queries at positions 0.. over sk keys at 0..: the work a
+    kernel that skips the rest does."""
     import numpy as np
 
-    q = np.arange(s, dtype=np.int64)
-    hi = q if causal else np.full(s, s - 1)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, dtype=np.int64)
-    return int((hi - lo + 1).sum())
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def flash_cases(torch, timer, gen):
@@ -566,12 +617,14 @@ def flash_cases(torch, timer, gen):
     fwd_cases, bwd_cases = [], []
     for label, b, s, hq, hkv, d, causal, window in FLASH_CASES + FLASH_FP32_CASES:
         dtype = torch.float32 if label.startswith("fp32") else torch.bfloat16
+        sq, sk = s if isinstance(s, tuple) else (s, s)
 
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
 
-        q, k, v, dout = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
-        name = f"flash_attention {label} [{b},{s},{hq}/{hkv},{d}] window={window}"
+        q, k, v, dout = rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), rnd(b, sq, hq, d)
+        name = (f"flash_attention {label} [{b},{sq if sq == sk else f'{sq}/{sk}'},{hq}/{hkv},{d}] "
+                f"causal={causal} window={window}")
         out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
         grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
         f32 = [t.float() for t in (q, k, v, out, dout)]  # the same values in fp32
@@ -607,21 +660,22 @@ def flash_cases(torch, timer, gen):
             ratios.append(f"d{n} {row:.3f}/{mean:.3f}")
         del f32, ref, ref_lse, ref_grads, grads_p, grads
         log(f"kernels: {name}: gate row/mean ratios (pass <= 1) {', '.join(ratios)}")
-        pairs = b * hq * kept_pairs(s, causal, window)
-        io = (2 * b * s * hq * d + 2 * b * s * hkv * d) * 2  # q, k, v in; out
-        lse_bytes = b * hq * s * 4
+        pairs = b * hq * kept_pairs(sq, sk, causal, window)
+        io = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * 2  # q, k, v in; out
+        lse_bytes = b * hq * sq * 4
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        i = torch.arange(s, device=DEVICE)
-        mask = (i[None] <= i[:, None]) if causal else torch.ones(s, s, dtype=torch.bool, device=DEVICE)
+        iq, ik = torch.arange(sq, device=DEVICE), torch.arange(sk, device=DEVICE)
+        mask = (ik[None] <= iq[:, None]) if causal else torch.ones(
+            sq, sk, dtype=torch.bool, device=DEVICE)
         if window:
-            mask &= i[:, None] - i[None] < window
+            mask &= iq[:, None] - ik[None] < window
         with torch.no_grad():
             ms = timer(lambda: ops.flash_attention_fwd(q, k, v, causal, window))
             plain = timer(lambda: flash_attention_ref(q, k, v, causal=causal, window=window))
             lib = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
         bound, by = bound_ms(io + lse_bytes, 4 * pairs * d, BF16_FLOPS)
-        fwd_cases.append(dict(case=label, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=causal,
+        fwd_cases.append(dict(case=label, B=b, S=sq, Sk=sk, Hq=hq, Hkv=hkv, D=d, causal=causal,
                               window=window, dtype="bfloat16", pairs=pairs, ms=ms,
                               plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                               max_abs_err=err, tflops=4 * pairs * d / ms / 1e9))
@@ -641,7 +695,7 @@ def flash_cases(torch, timer, gen):
         del lib_out, qg, kg, vg
         # q, k, v, out, dout, lse in; dq, dk, dv out
         bbound, bby = bound_ms(2 * io + lse_bytes, 10 * pairs * d, BF16_FLOPS)
-        bwd_cases.append(dict(case=label, B=b, S=s, Hq=hq, Hkv=hkv, D=d, causal=causal,
+        bwd_cases.append(dict(case=label, B=b, S=sq, Sk=sk, Hq=hq, Hkv=hkv, D=d, causal=causal,
                               window=window, dtype="bfloat16", pairs=pairs, ms=bms,
                               plain_ms=bplain, library_ms=blib, bound_ms=bbound, bound_by=bby,
                               max_abs_err=gerr, tflops=10 * pairs * d / bms / 1e9))
@@ -1003,62 +1057,69 @@ def phase_profile(torch, engine, cache, seq):
 
 # ------------------------------------------------------------ phase 5
 def train_launch_schedule(cfg) -> dict:
-    """Launches per train step that the remat schedule implies: every layer's
-    attention and two norms, plus the final norm, run once forward and once
-    backward; the layers of the checkpointed groups run forward again in the
-    backward pass (the tail and the final norm are not checkpointed)."""
-    n = cfg.n_layers
-    remat_layers = (n // len(cfg.pattern)) * len(cfg.pattern)
-    return {"flash_attention": n + remat_layers, "flash_attention_bwd": n,
-            "rmsnorm": (2 * n + 1) + 2 * remat_layers, "rmsnorm_bwd": 2 * n + 1,
-            "decode_attention": 0, "rmsnorm_residual": 0, "ssd_scan": 0}
+    """Launches per train step that the remat schedule implies: the forward's
+    attentions and norms run once forward and once backward, and the
+    checkpointed layers run forward again in the backward pass: the stacked
+    groups of a decoder-only model (not its tail or final norm), every
+    encoder and decoder layer of whisper (not the two final norms)."""
+    fwd = path_launches(cfg, "forward")
+    if cfg.family == "encdec":
+        remat = dict(flash_attention=fwd["flash_attention"], rmsnorm=fwd["rmsnorm"] - 2)
+    else:
+        layers = (cfg.n_layers // len(cfg.pattern)) * len(cfg.pattern)
+        remat = dict(flash_attention=layers, rmsnorm=2 * layers)
+    return dict(fwd, flash_attention=fwd["flash_attention"] + remat["flash_attention"],
+                flash_attention_bwd=fwd["flash_attention"],
+                rmsnorm=fwd["rmsnorm"] + remat["rmsnorm"], rmsnorm_bwd=fwd["rmsnorm"])
 
 
-def phase_train(torch, seed, smi):
+def token_batch(torch, cfg, seed: int, batch: int, seq: int) -> dict:
+    """tokens/labels [batch, seq] on the device, drawn from ``seed``."""
     import numpy as np
 
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq + 1))
+    tokens = torch.from_numpy(tokens.astype(np.int32)).to(DEVICE)
+    return {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+
+
+def restore_params(api, seed: int, tag: str):
+    """Random params from ``seed`` written to checkpoint DU files and read
+    back onto the device; returns (params, GiB of files, params count)."""
     from repro_torch.bridge import params_from_files
     from repro_torch.checkpoint import checkpoint_files, flatten_tree
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.optim import init_adamw
-    from repro_torch.training import make_eval_step, make_train_step
 
-    cfg = get_config(TRAIN_MODEL)
-    api = build_model(cfg, device=DEVICE)
-    t0 = time.perf_counter()
-    files = checkpoint_files(0, "h2o-danube-chip-smoke", api.init(seed=seed))
+    files = checkpoint_files(0, f"{api.cfg.name}-{tag}", api.init(seed=seed))
     params = params_from_files(files, device=DEVICE)
     n_bytes = sum(len(b) for b in files.values())
     del files
-    opt = init_adamw(params)
-    n_params = sum(p.numel() for _, p in flatten_tree(params))
-    sync(torch)
-    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads of {cfg.head_dim_}, window {cfg.sliding_window}, vocab "
-        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params) restored from {n_bytes / 2**30:.2f} "
-        f"GiB of checkpoint files, AdamW state on the device, in {time.perf_counter() - t0:.1f} s")
+    return params, n_bytes / 2**30, sum(p.numel() for _, p in flatten_tree(params))
 
-    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
-    tokens = torch.from_numpy(tokens.astype(np.int32)).to(DEVICE)
-    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+
+def run_train(torch, smi, tag: str, api, params, batch, tokens_per_step: int):
+    """Phase 5's schedule: AdamW state initialised on the device from
+    ``params``, one eval, TRAIN_STEPS remat steps on ``batch``, one more
+    eval.  Every launch count must be what the schedule implies, every
+    metric finite, step 0's loss (lr 0) equal to the eval loss within 2^-7
+    and the loss must fall.  Returns (params, opt, train_step, launches,
+    summary)."""
+    from repro_torch.optim import init_adamw
+    from repro_torch.training import make_eval_step, make_train_step
+
+    opt = init_adamw(params)
     eval_step = make_eval_step(api)
     train_step = make_train_step(api, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                                  total_steps=TRAIN_STEPS, microbatches=1, remat=True)
-    per_step = train_launch_schedule(cfg)
-    n = cfg.n_layers
-    per_eval = {name: 0 for name in per_step}
-    per_eval.update(flash_attention=n, rmsnorm=2 * n + 1)
+    per_step, per_eval = train_launch_schedule(api.cfg), path_launches(api.cfg, "forward")
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     sync(torch)
     t0 = time.perf_counter()
-    ev0 = float(eval_step(params, batch)["loss"])
+    ev0 = {k: float(v) for k, v in eval_step(params, batch).items()}
     sync(torch)
     eval_s = time.perf_counter() - t0
     if read_counts() != per_eval:
-        raise AssertionError(f"eval launches {read_counts()} != {per_eval}")
+        raise AssertionError(f"{tag}: eval launches {read_counts()} != {per_eval}")
     history, step_s = [], []
     for i in range(TRAIN_STEPS):
         before = read_counts()
@@ -1067,65 +1128,86 @@ def phase_train(torch, seed, smi):
         params, opt, metrics = train_step(params, opt, batch)
         sync(torch)
         step_s.append(time.perf_counter() - t0)
-        got = {k: v - before[k] for k, v in read_counts().items()}
-        if got != per_step:
-            raise AssertionError(f"step {i} launches {got} != {per_step}")
+        check_launches(before, per_step, f"{tag}: step {i}")
         history.append({k: float(v) for k, v in metrics.items()})
-        log(f"train: step {i}: loss {history[-1]['loss']:.6f}, grad_norm "
-            f"{history[-1]['grad_norm']:.6f}, lr {history[-1]['lr']:.3e}, {step_s[-1]:.3f} s")
-    ev1 = float(eval_step(params, batch)["loss"])
+        log(f"{tag}: step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in history[-1].items())
+            + f", {step_s[-1]:.3f} s")
+    ev1 = {k: float(v) for k, v in eval_step(params, batch).items()}
     sync(torch)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     expected = {k: TRAIN_STEPS * per_step[k] + 2 * per_eval[k] for k in per_step}
     if launches != expected:
-        raise AssertionError(f"train launches {launches} != {expected}")
-    values = [ev0, ev1] + [h[k] for h in history for k in ("loss", "grad_norm", "lr")]
+        raise AssertionError(f"{tag}: launches {launches} != {expected}")
+    values = [*ev0.values(), *ev1.values()] + [v for h in history for v in h.values()]
     if not all(math.isfinite(x) for x in values):
-        raise AssertionError(f"non-finite train metrics: {history}, evals {ev0}, {ev1}")
+        raise AssertionError(f"{tag}: non-finite metrics: {history}, evals {ev0}, {ev1}")
     loss0 = history[0]["loss"]
-    if history[0]["lr"] != 0.0 or abs(loss0 - ev0) > BF16_ULP * abs(ev0) + 1e-5:
-        raise AssertionError(f"step 0 loss {loss0} (lr {history[0]['lr']}) != eval loss {ev0}")
-    if not ev1 < loss0:
-        raise AssertionError(f"loss did not fall: step 0 {loss0}, after {TRAIN_STEPS} steps {ev1}")
+    if history[0]["lr"] != 0.0 or abs(loss0 - ev0["loss"]) > BF16_ULP * abs(ev0["loss"]) + 1e-5:
+        raise AssertionError(f"{tag}: step 0 loss {loss0} (lr {history[0]['lr']}) != eval "
+                             f"loss {ev0['loss']}")
+    if not ev1["loss"] < loss0:
+        raise AssertionError(f"{tag}: loss did not fall: step 0 {loss0}, after {TRAIN_STEPS} "
+                             f"steps {ev1['loss']}")
     steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
-    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
-    log(f"train: eval loss {ev0:.6f} ({eval_s:.3f} s) -> {ev1:.6f} after {TRAIN_STEPS} steps; "
-        f"step 0 loss {loss0:.6f} (lr 0) equals the eval loss within 2^-7")
-    log(f"train: {tokens_per_step} tokens/step (batch {TRAIN_BATCH} x seq {TRAIN_SEQ}): "
-        f"{steady:.3f} s/step (median of steps 1-{TRAIN_STEPS - 1}; step 0 {step_s[0]:.3f} s), "
-        f"{tokens_per_step / steady:.1f} tokens/s, peak device memory {peak:.2f} GiB on {smi}")
-    log(f"train: launches per step {per_step}; in all (2 evals + {TRAIN_STEPS} steps) {launches}")
-    return api, params, opt, batch, train_step, launches, dict(
+    log(f"{tag}: eval {ev0} ({eval_s:.3f} s) -> {ev1} after {TRAIN_STEPS} steps; step 0 loss "
+        f"{loss0:.6f} (lr 0) equals the eval loss within 2^-7")
+    log(f"{tag}: {tokens_per_step} tokens/step: {steady:.3f} s/step (median of steps "
+        f"1-{TRAIN_STEPS - 1}; step 0 {step_s[0]:.3f} s), {tokens_per_step / steady:.1f} "
+        f"tokens/s, peak device memory {peak:.2f} GiB on {smi}")
+    log(f"{tag}: launches per step {per_step}; in all (2 evals + {TRAIN_STEPS} steps) {launches}")
+    return params, opt, train_step, launches, dict(
         s_per_step=steady, step_s=step_s, tokens_per_s=tokens_per_step / steady,
-        peak_gib=peak, eval_loss=[ev0, ev1], history=history)
+        peak_gib=peak, eval_loss=[ev0["loss"], ev1["loss"]], history=history)
 
 
-def phase_profile_train(torch, params, opt, batch, train_step):
-    """Device time of one more train step by kernel group."""
+def phase_train(torch, seed, smi):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(TRAIN_MODEL)
+    api = build_model(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params, gib, n_params = restore_params(api, seed, "chip-smoke")
+    sync(torch)
+    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim_}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params) restored from {gib:.2f} GiB of "
+        f"checkpoint files in {time.perf_counter() - t0:.1f} s")
+    batch = token_batch(torch, cfg, seed, TRAIN_BATCH, TRAIN_SEQ)
+    params, opt, train_step, launches, out = run_train(
+        torch, smi, "train", api, params, batch, TRAIN_BATCH * TRAIN_SEQ)
+    return api, params, opt, batch, train_step, launches, out
+
+
+def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> float:
+    """Device time of one more train step by kernel group, and of the spans
+    in it: clip + AdamW, and for an MoE model its MoE layers' forwards and
+    recomputes (``moe_spans``); returns the step's device time in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(torch)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with moe_spans(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_step(params, opt, batch)
         sync(torch)
         wall = time.perf_counter() - t0
-    groups, total, optimizer = {}, 0.0, None
+    groups, total, spans, kernels = {}, 0.0, {}, {}
     for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = ev.self_cuda_time_total
-        if ev.key == "optimizer":  # the span, not a kernel: its kernels' time
-            optimizer = getattr(ev, "device_time_total", None)
-            if optimizer is None:
-                optimizer = ev.cuda_time_total
+        if ev.key in ("optimizer",) + MOE_SPANS:  # a span, not a kernel: its kernels' time
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                t = getattr(ev, "device_time_total", None)
+                spans[ev.key] = ev.cuda_time_total if t is None else t
             continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
         total += t
         name = ev.key
+        kernels[name] = kernels.get(name, 0.0) + t
         low = name.lower()
         if "flash_fwd" in name:
             g = "B1 flash_attention forward (CUDA)"
@@ -1139,29 +1221,53 @@ def phase_profile_train(torch, params, opt, batch, train_step):
             g = "B3a rmsnorm forward (Triton)"
         elif any(x in low for x in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")):
             g = "matmul (cuBLAS)"
-        elif any(x in low for x in ("elementwise", "reduce", "copy", "vectorized", "index",
-                                    "softmax", "scatter", "gather", "fill", "cat")):
-            g = "PyTorch elementwise/reduce/copy/index"
+        elif any(x in low for x in ("sort", "topk", "searchsorted", "scatter", "index", "gather")):
+            g = "PyTorch sort/top-k/index/scatter/gather"
+        elif any(x in low for x in ("elementwise", "reduce", "copy", "vectorized",
+                                    "softmax", "fill", "cat")):
+            g = "PyTorch elementwise/reduce/copy"
         else:
             g = "other: " + name[:60]
         groups[g] = groups.get(g, 0.0) + t
-    log(f"profile train: one step, wall {wall:.3f} s, device busy {total / 1e6:.3f} s "
+    log(f"profile {tag}: one step, wall {wall:.3f} s, device busy {total / 1e6:.3f} s "
         f"({100 * total / 1e6 / wall:.1f} %)")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1])[:14]:
-        log(f"profile train:   {t / 1e6:8.4f} s  {g}")
-    if optimizer is not None:
-        log(f"profile train:   of which clip + AdamW (all groups): {optimizer / 1e6:.4f} s")
+        log(f"profile {tag}:   {t / 1e6:8.4f} s  {g}")
+    for name, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"profile {tag}:     kernel {t / 1e6:8.4f} s  {name[:110]}")
+    if "optimizer" in spans:
+        log(f"profile {tag}:   of which clip + AdamW (all groups): {spans['optimizer'] / 1e6:.4f} s")
+    if MOE_SPANS[0] in spans:
+        layer, ffn = spans[MOE_SPANS[0]], spans.get(MOE_SPANS[1], 0.0)
+        log(f"profile {tag}:   of which inside moe_mlp_local, forwards and remat recomputes: "
+            f"{layer / 1e6:.4f} s (expert FFN {ffn / 1e6:.4f}, routing, dispatch and combine "
+            f"{(layer - ffn) / 1e6:.4f})")
+    return total / 1e6
 
 
 # ------------------------------------------------------------ phase 6
-def ssm_launches(cfg, path: str) -> dict:
-    """Launches that one decode step (``path="step"``) or one teacher-forced
-    forward (``"forward"``) implies: every layer's norms (two each) and the
+def path_launches(cfg, path: str) -> dict:
+    """Launches that one decode step (``path="step"``), one teacher-forced
+    forward (``"forward"``) or, for whisper, one encoder pass (``"encode"``)
+    implies.  A decoder-only model: every layer's norms (two each) and the
     final norm; a decode step's attention layers run B2, a forward's run B1
-    and its mamba layers B4 (phases 6 and 8)."""
+    and its mamba layers B4.  Whisper: an encoder layer runs one attention
+    and two norms, a decoder layer two attentions (self and cross) and
+    three norms, each stack one final norm (phases 4-10)."""
+    out = {name: 0 for name, _, _ in counters()}
+    if cfg.family == "encdec":
+        n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+        enc = dict(flash_attention=n_enc, rmsnorm=2 * n_enc + 1)
+        if path == "encode":
+            out.update(enc)
+        elif path == "step":
+            out.update(decode_attention=2 * n_dec, rmsnorm=3 * n_dec + 1)
+        else:
+            out.update(flash_attention=enc["flash_attention"] + 2 * n_dec,
+                       rmsnorm=enc["rmsnorm"] + 3 * n_dec + 1)
+        return out
     kinds = cfg.layer_kinds()
     n_mamba = kinds.count("mamba")
-    out = {name: 0 for name, _, _ in counters()}
     out["rmsnorm"] = 2 * len(kinds) + 1
     if path == "step":
         out["decode_attention"] = len(kinds) - n_mamba
@@ -1235,7 +1341,7 @@ def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = Fa
     new = engine.generate(prompts, SSM_NEW_TOKENS)
     sync(torch)
     elapsed = time.perf_counter() - t0
-    per_step = ssm_launches(cfg, "step")
+    per_step = path_launches(cfg, "step")
     check_launches(before, {k: v * steps for k, v in per_step.items()}, f"{model} decode")
     if new.shape != (SSM_BATCH, SSM_NEW_TOKENS) or not bool(
             ((new >= 0) & (new < cfg.vocab_size)).all()):
@@ -1257,7 +1363,7 @@ def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = Fa
     with torch.no_grad():
         before = read_counts()
         hidden = api.forward(engine.params, fed, return_hidden=True)
-        check_launches(before, ssm_launches(cfg, "forward"), f"{model} forward")
+        check_launches(before, path_launches(cfg, "forward"), f"{model} forward")
         ref = unembed(hidden[:, list(SSM_CHECK_POSITIONS)], engine.params["embed"], cfg).float()
         del hidden
         bf16_pos, bf16_mean = logit_errors(recorded, ref)
@@ -1313,7 +1419,7 @@ def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = Fa
                 logits = api.forward(engine.params, tokens, last_only=True)
                 sync(torch)
                 runs.append(time.perf_counter() - t0)
-                check_launches(before, ssm_launches(cfg, "forward"), f"{model} prefill")
+                check_launches(before, path_launches(cfg, "forward"), f"{model} prefill")
         if logits.shape != (1, 1, cfg.vocab_size) or not bool(logits.isfinite().all()):
             raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
         out.update(prefill_len=prefill_len, prefill_ms=runs[1] * 1e3,
@@ -1781,7 +1887,7 @@ def phase_moe(torch, seed, smi, profile: bool = False):
     prompts = torch.from_numpy(
         np.random.default_rng(seed).integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT_LEN)))
     steps = MOE_PROMPT_LEN + MOE_NEW_TOKENS - 1
-    per_step, per_forward = ssm_launches(cfg, "step"), ssm_launches(cfg, "forward")
+    per_step, per_forward = path_launches(cfg, "step"), path_launches(cfg, "forward")
     out, seqs = {}, {}
     cf = m.n_experts / m.top_k
     nodrop = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=cf)),
@@ -1884,6 +1990,255 @@ def phase_moe(torch, seed, smi, profile: bool = False):
 
 
 
+# ------------------------------------------------------------ phase 9
+def moe_layer_times(torch, api, params, batch_rows: int):
+    """Device ms of one MoE layer (layer 0's weights) at ``batch_rows``
+    tokens of the train batch, alone: its forward, and its backward (to its
+    input, router and experts)."""
+    from repro_torch.models.moe import moe_mlp_local
+    from repro_torch.models.transformer import _group_slice
+
+    cfg = api.cfg
+    timer = Timer(torch)
+    lp = _group_slice(params["groups"], 0)["pos0"]["moe"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn(1, batch_rows, cfg.d_model, generator=gen, device=DEVICE).to(
+        getattr(torch, cfg.compute_dtype)).requires_grad_()
+    with torch.no_grad():
+        fwd = timer(lambda: moe_mlp_local(lp, x, cfg), iters=10)
+    out, aux = moe_mlp_local(lp, x, cfg)
+    dy = torch.randn(out.shape, generator=gen, device=DEVICE).to(out.dtype)
+    leaves = [x, lp["router"]["w"], lp["gate"], lp["up"], lp["down"]]
+    bwd = timer(lambda: torch.autograd.grad((out, aux), leaves, (dy, torch.ones_like(aux)),
+                                            retain_graph=True), iters=10)
+    del out, aux, dy, timer
+    return fwd, bwd
+
+
+def moe_remat_check(torch, seed, cfg, batch) -> dict:
+    """At MOE_REMAT_LAYERS of the model's layers (the cut is of depth only),
+    the gradients of ``loss_fn`` with remat against those without: the
+    routing that the backward pass recomputes must be the forward's (the
+    same experts and slots, so the same pairs dropped), and every leaf's
+    gradient must agree within one bf16 ulp of its largest value."""
+    import dataclasses
+
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.models import build_model, moe
+
+    cfg = dataclasses.replace(cfg, n_layers=MOE_REMAT_LAYERS or cfg.n_layers)
+    api = build_model(cfg, device=DEVICE)
+    params = api.init(seed=seed)
+    leaves = flatten_tree(params)
+    tensors = [t.requires_grad_(True) for _, t in leaves]
+    dispatch, tables = moe._dispatch_tables, []
+
+    def recording(expert_idx, n_tokens, e_pad, cap):
+        slot_table, token_slots = dispatch(expert_idx, n_tokens, e_pad, cap)
+        tables.append((expert_idx.clone(), token_slots.clone(),
+                       int((token_slots == e_pad * cap).sum())))
+        return slot_table, token_slots
+
+    runs = {}
+    moe._dispatch_tables = recording
+    try:
+        for remat in (True, False):
+            tables.clear()
+            loss, _ = api.loss_fn(params, batch, remat=remat)
+            grads = torch.autograd.grad(loss, tensors)
+            runs[remat] = (float(loss.detach()), grads, list(tables))
+            del loss
+    finally:
+        moe._dispatch_tables = dispatch
+    n = cfg.n_layers
+    fwd, again = runs[True][2][:n], runs[True][2][n:][::-1]  # recomputed last layer first
+    if len(again) != n or len(runs[False][2]) != n:
+        raise AssertionError(f"moe-train remat check: {len(runs[True][2])} dispatches with remat, "
+                             f"{len(runs[False][2])} without, for {n} layers")
+    for i, (a, b, c) in enumerate(zip(fwd, again, runs[False][2])):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
+                and torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])):
+            raise AssertionError(f"moe-train remat check: layer {i}'s routing in the backward "
+                                 f"pass differs from its forward's (dropped {a[2]} vs {b[2]})")
+    worst, equal = 0.0, 0
+    for (path, _), g, h in zip(leaves, runs[True][1], runs[False][1]):
+        diff = (g.float() - h.float()).abs().max().item()
+        scale = h.float().abs().max().item()
+        equal += diff == 0.0
+        ratio = diff / scale if scale > 0 else diff
+        worst = max(worst, ratio)
+        if diff > BF16_ULP * scale:
+            raise AssertionError(f"moe-train remat check: {path} gradient with remat differs by "
+                                 f"{diff:.3e} from the one without (its max |g| {scale:.3e})")
+    dropped = [t[2] for t in fwd]
+    log(f"moe-train: remat check at {n} of the model's layers (depth cut only): loss "
+        f"{runs[True][0]:.6f} with remat, {runs[False][0]:.6f} without; the routing recomputed "
+        f"in the backward pass equals the forward's in every layer (pairs dropped {dropped}); "
+        f"{equal} of {len(leaves)} gradient leaves equal bit for bit, the largest difference "
+        f"{worst:.3e} of a leaf's max |g| (gate: 2^-7)")
+    return dict(layers=n, loss=[runs[True][0], runs[False][0]], dropped=dropped,
+                equal_leaves=equal, leaves=len(leaves), max_rel_diff=worst)
+
+
+def phase_moe_train(torch, seed, smi, profile: bool = False):
+    """MOE_MODEL at every published width and depth, restored from checkpoint
+    files and trained on phase 5's batch and schedule with AdamW state on
+    the device, every plain version refused; then the remat check."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(MOE_MODEL)
+    m = cfg.moe
+    api = build_model(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params, gib, n_params = restore_params(api, seed, "train-chip-smoke")
+    sync(torch)
+    log(f"moe-train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim_}, {m.n_experts} experts top-{m.top_k} of d_ff "
+        f"{m.d_ff_expert}, capacity factor {m.capacity_factor}, {n_params / 1e9:.3f} B params) "
+        f"restored from {gib:.2f} GiB of checkpoint files in {time.perf_counter() - t0:.1f} s")
+    batch = token_batch(torch, cfg, seed, TRAIN_BATCH, TRAIN_SEQ)
+    with plain_versions_forbidden():
+        params, opt, train_step, launches, out = run_train(
+            torch, smi, "moe-train", api, params, batch, TRAIN_BATCH * TRAIN_SEQ)
+    if profile:
+        step_s = phase_profile_train(torch, params, opt, batch, train_step, "moe-train")
+        fwd, bwd = moe_layer_times(torch, api, params, TRAIN_BATCH * TRAIN_SEQ)
+        per_step = cfg.n_layers * (2 * fwd + bwd) / 1e3
+        share = 100 * per_step / step_s if step_s else float("nan")  # no device trace: nan
+        log(f"profile moe-train: one MoE layer alone at {TRAIN_BATCH * TRAIN_SEQ} tokens: forward "
+            f"{fwd:.4f} ms, backward {bwd:.4f} ms; {cfg.n_layers} x (2 forwards (remat) + 1 "
+            f"backward) = {per_step:.4f} s of the step's {step_s:.4f} s of device time "
+            f"({share:.1f} %)")
+        out.update(moe_layer_fwd_ms=fwd, moe_layer_bwd_ms=bwd)
+    del params, opt, train_step
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with plain_versions_forbidden():
+        out["remat_check"] = moe_remat_check(torch, seed, cfg, batch)
+    return launches, out
+
+
+# ------------------------------------------------------------ phase 10
+def phase_whisper(torch, seed, smi, profile: bool = False):
+    """WHISPER_MODEL at every width and depth from checkpoint files, every
+    plain version refused: served by DecodeEngine after its cross cache is
+    filled from frames as a caller fills it, decode logits held against the
+    teacher-forced forward; then trained on phase 5's schedule."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint_files, flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, whisper
+    from repro_torch.models.layers import unembed
+    from repro_torch.serving import DecodeEngine
+
+    cfg = get_config(WHISPER_MODEL)
+    e = cfg.encdec
+    api = build_model(cfg, device=DEVICE)
+    cdt = getattr(torch, cfg.compute_dtype)
+    recorded = {}
+
+    def recording_step(params, cache, tokens, pos_index):
+        """The model's decode step, keeping the logits at the check positions."""
+        logits, cache = api.decode_step(params, cache, tokens, pos_index)
+        if pos_index in WHISPER_CHECK_POSITIONS:
+            recorded[pos_index] = logits[:, 0].float()
+        return logits, cache
+
+    t0 = time.perf_counter()
+    files = checkpoint_files(0, f"{WHISPER_MODEL}-chip-smoke", api.init(seed=seed))
+    engine = DecodeEngine.from_files(dataclasses.replace(api, decode_step=recording_step), files,
+                                     batch=WHISPER_BATCH, max_len=WHISPER_MAX_LEN)
+    n_bytes = sum(len(b) for b in files.values())
+    del files
+    params = engine.params
+    n_params = sum(t.numel() for _, t in flatten_tree(params))
+    sync(torch)
+    log(f"whisper: {cfg.name} ({e.n_enc_layers} encoder + {cfg.n_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+        f"{e.n_frames} frames, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params) through "
+        f"{n_bytes / 2**30:.2f} GiB of checkpoint files in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(seed)
+
+    def frames_of(batch):
+        x = rng.standard_normal((batch, e.n_frames, cfg.d_model), dtype=np.float32)
+        return torch.from_numpy(x).to(DEVICE).to(cdt)
+
+    frames = frames_of(WHISPER_BATCH)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT_LEN)))
+    steps = WHISPER_PROMPT_LEN + WHISPER_NEW_TOKENS - 1
+    per_step = path_launches(cfg, "step")
+    before_phase = read_counts()
+    with plain_versions_forbidden(), torch.no_grad():
+        before = read_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        engine.cache = whisper.prefill_cross_cache(params, frames, engine.cache, cfg)
+        sync(torch)
+        prefill_s = time.perf_counter() - t0
+        check_launches(before, path_launches(cfg, "encode"), "whisper cross-cache prefill")
+        before = read_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        new = engine.generate(prompts, WHISPER_NEW_TOKENS)
+        sync(torch)
+        elapsed = time.perf_counter() - t0
+        check_launches(before, {k: v * steps for k, v in per_step.items()}, "whisper decode")
+        if new.shape != (WHISPER_BATCH, WHISPER_NEW_TOKENS) or not bool(
+                ((new >= 0) & (new < cfg.vocab_size)).all()):
+            raise AssertionError(f"whisper: bad generated tokens {tuple(new.shape)}")
+        # the engine's next step, at the position after the last one it fed
+        recording_step(params, engine.cache, new[:, -1:], steps)
+        seq = torch.cat([prompts.to(new.device), new], dim=1)  # [B, steps + 1]
+        before = read_counts()
+        hidden = api.forward(params, frames, seq, return_hidden=True)
+        check_launches(before, path_launches(cfg, "forward"), "whisper forward")
+        ref = unembed(hidden[:, list(WHISPER_CHECK_POSITIONS)], params["embed"], cfg).float()
+        del hidden
+    serve_launches = {k: v - before_phase[k] for k, v in read_counts().items()}
+    encode, forward = path_launches(cfg, "encode"), path_launches(cfg, "forward")
+    expected = {k: encode[k] + (steps + 1) * per_step[k] + forward[k] for k in per_step}
+    if serve_launches != expected:
+        raise AssertionError(f"whisper: serve launches {serve_launches} != {expected}")
+    dec = torch.stack([recorded[p] for p in WHISPER_CHECK_POSITIONS], dim=1)
+    if dec.shape != ref.shape or not bool(dec.isfinite().all()):
+        raise AssertionError(f"whisper: decode logits {tuple(dec.shape)} not finite")
+    scale = max(1.0, ref.abs().max().item())
+    err = (dec - ref).abs()
+    per_pos = {p: err[:, j].max().item() / scale for j, p in enumerate(WHISPER_CHECK_POSITIONS)}
+    mean = err.mean().item() / scale
+    out = dict(params=n_params, checkpoint_bytes=n_bytes, prefill_s=prefill_s,
+               ms_per_step=elapsed / steps * 1e3, tokens_per_s=WHISPER_BATCH * steps / elapsed,
+               logit_err=per_pos, logit_mean_err=mean, serve_launches=serve_launches)
+    log(f"whisper: cross-cache prefill (encoder over {WHISPER_BATCH} x {e.n_frames} frames) "
+        f"{prefill_s:.3f} s; {steps} decode steps at batch {WHISPER_BATCH}: {elapsed:.3f} s, "
+        f"{out['ms_per_step']:.3f} ms/step, {out['tokens_per_s']:.1f} tokens/s on {smi}; "
+        f"launches per step {per_step}")
+    log(f"whisper: decode vs forward logits at positions {WHISPER_CHECK_POSITIONS}: max |err| / "
+        f"{scale:.3f} = {per_pos} (tol {LOGIT_TOL}), mean {mean:.2e} (tol {LOGIT_MEAN_TOL})")
+    if max(per_pos.values()) > LOGIT_TOL or mean > LOGIT_MEAN_TOL:
+        raise AssertionError("whisper: decode logits disagree with the teacher-forced forward")
+    if profile:  # decodes on past the checked position
+        phase_profile(torch, engine, engine.cache, seq)
+    del engine, dec, ref, frames
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    batch = token_batch(torch, cfg, seed, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ)
+    batch["frames"] = frames_of(WHISPER_TRAIN_BATCH)
+    with plain_versions_forbidden():
+        params, opt, train_step, train_launches, out["train"] = run_train(
+            torch, smi, "whisper-train", api, params, batch,
+            WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ)
+    del params, opt, train_step, batch
+    launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
+    return launches, out
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1896,6 +2251,7 @@ def main() -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build(torch)
     results = phase_kernels(torch, args.seed)
@@ -1933,6 +2289,14 @@ def main() -> int:
     moe_launches_all, moe_out = phase_moe(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"moe: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_train_launches, moe_train = phase_moe_train(torch, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    log(f"moe-train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper_launches, whisper_out = phase_whisper(torch, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    log(f"whisper: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -1951,7 +2315,8 @@ def main() -> int:
         "ssd_scan": ("cuda", SSD_SRC, "src/repro/kernels/ssd_scan/ssd_scan.py:105", "ssm"),
     }
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
-               "pilot": pilot_launches, "moe": moe_launches_all}
+               "pilot": pilot_launches, "moe": moe_launches_all, "moe-train": moe_train_launches,
+               "whisper": whisper_launches}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -1974,6 +2339,9 @@ def main() -> int:
     log("ssm: " + json.dumps(ssm))
     log("pilot: " + json.dumps({"train": pilot_train, "serve": pilot_serve}))
     log("moe: " + json.dumps(moe_out))
+    log("moe-train: " + json.dumps(moe_train))
+    log("whisper: " + json.dumps(whisper_out))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,10 @@ per token and per head, with their fp32 scales beside them (``k_scale``,
 ``v_scale``), as the JAX package's does; each step dequantises the whole
 cache to the compute dtype and hands it to the decode kernel, as JAX hands
 its dequantised cache to the Pallas kernel.
+
+Cross-attention (the encoder-decoder family) runs the same two kernels:
+the flash kernel non-causally over the encoder's keys in a teacher-forced
+pass, the decode kernel over the cross cache in a decode step.
 """
 
 from __future__ import annotations
@@ -138,6 +142,42 @@ def attention_block(
         ck, cv = cache["k"], cache["v"]
     out = decode_attention(q, ck, cv, positions[:, 0], positions_k, window=window)
     return dense(out.reshape(b, s, cfg.n_heads * hd), params["o"]), cache
+
+
+def cross_attention_block(
+    params: Dict,
+    x: torch.Tensor,  # [B, Sq, d_model]
+    enc_kv: Tuple[torch.Tensor, torch.Tensor],  # K, V precomputed [B, Sk, Hkv, D]
+    cfg: ModelConfig,
+    positions: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Encoder-decoder cross-attention (whisper), K and V precomputed from the
+    encoder output.  No RoPE and no mask: the JAX package puts every query
+    and every key at position 0 and attends non-causally.  A teacher-forced
+    x goes through the flash kernel (non-causal, Sq != Sk); a decode step
+    passes ``positions`` = (positions_q [B], positions_k [B, Sk]), all 0, and
+    goes through the decode kernel, which then keeps every slot."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    q = dense(x, params["q"]).reshape(b, s, cfg.n_heads, hd)
+    k, v = enc_kv
+    if positions is None:
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        out = decode_attention(q, k, v, *positions)
+    return dense(out.reshape(b, s, cfg.n_heads * hd), params["o"])
+
+
+def precompute_cross_kv(
+    params: Dict, enc_out: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention K and V [B, Sk, Hkv, D] from the
+    encoder output [B, Sk, d_model]."""
+    b, sk, _ = enc_out.shape
+    hd = cfg.head_dim_
+    k = dense(enc_out, params["k"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = dense(enc_out, params["v"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    return k, v
 
 
 def ring_positions(cache_index: int, s_cache: int, batch: int, device) -> torch.Tensor:

@@ -11,7 +11,8 @@ gathers tokens into per-expert capacity buffers; no [T, E, C] one-hot is
 built.  The expert FFN is three batched products over [E, C, d], which the
 JAX package leaves to XLA's einsums, here to ``torch.bmm``.  ``T`` and the
 capacity are Python ints taken from shapes, so nothing here waits on the
-device.
+device.  In a training step the two gathers backpropagate as gathers too
+(``_GatherRows``): deterministic, with no atomic or serial scatter-add.
 
 The parameter tree is the JAX package's (``router/w`` fp32 [d, E],
 ``gate``/``up`` [E_pad, d, f], ``down`` [E_pad, f, d]), so checkpoints cross
@@ -121,10 +122,46 @@ def _expert_ffn(expert_in: torch.Tensor, params: Dict, cfg: ModelConfig) -> torc
     return torch.bmm(h, params["down"].to(cdt))
 
 
+class _GatherRows(torch.autograd.Function):
+    """``cat([src, zero row])[index]`` whose backward gathers too.
+
+    ``inverse`` [R, m] lists for each of the R rows of ``src`` the positions
+    of the flat output that read it, padded with ``index.numel()`` (a zero
+    gradient); a row's gradient is the sum of theirs (in fp32, rounded
+    once).  With ``inverse`` None, ``index`` reads each row at most once
+    (the zero row aside) and the backward inverts it.  Autograd's own
+    backward of the gather would scatter-add into ``src``, serially per
+    distinct index, and in a dispatch the empty-slot and dropped-pair rows
+    are read by thousands of positions each."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse):
+        ctx.rows = src.shape[0]
+        ctx.save_for_backward(index if inverse is None else inverse)
+        ctx.invert = inverse is None
+        return torch.cat([src, src.new_zeros((1, src.shape[1]))])[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inverse,) = ctx.saved_tensors
+        if ctx.invert:  # row -> the one position that reads it; the zero row's are dropped
+            n = inverse.numel()
+            inv = torch.full((ctx.rows + 1,), n, dtype=torch.int64, device=grad.device)
+            inv[inverse.reshape(-1)] = torch.arange(n, device=grad.device)
+            inverse = inv[:-1]
+        g = grad.reshape(-1, grad.shape[-1])
+        g = torch.cat([g, g.new_zeros((1, g.shape[1]))])[inverse]
+        return (g.sum(dim=1) if g.dim() == 3 else g), None, None
+
+
 def moe_mlp_local(
     params: Dict, x: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device MoE.  x: [B, S, d] -> ([B, S, d], aux loss scalar)."""
+    """Single-device MoE.  x: [B, S, d] -> ([B, S, d], aux loss scalar).
+
+    The dispatch and the combine are gathers whose backward gathers back:
+    a token's gradient from its k slots (by ``token_slots``), a slot's from
+    the one (token, expert) pair that fills it."""
     b, s, d = x.shape
     t = b * s
     e_pad = params["gate"].shape[0]
@@ -132,9 +169,8 @@ def moe_mlp_local(
     gates, expert_idx, aux = _route(x_flat, params, cfg)
     cap = _capacity(t, cfg)
     slot_table, token_slots = _dispatch_tables(expert_idx, t, e_pad, cap)
-    zero_row = x.new_zeros((1, d))
-    expert_in = torch.cat([x_flat, zero_row])[slot_table].reshape(e_pad, cap, d)
+    expert_in = _GatherRows.apply(x_flat, slot_table, token_slots).reshape(e_pad, cap, d)
     expert_out = _expert_ffn(expert_in, params, cfg)
-    out_pad = torch.cat([expert_out.reshape(e_pad * cap, d), zero_row])
-    y = (out_pad[token_slots] * gates[..., None].to(x.dtype)).sum(dim=1)
+    picked = _GatherRows.apply(expert_out.reshape(e_pad * cap, d), token_slots, None)
+    y = (picked * gates[..., None].to(x.dtype)).sum(dim=1)
     return y.reshape(b, s, d), aux

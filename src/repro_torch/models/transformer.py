@@ -14,8 +14,8 @@ with ``remat`` each group is a non-reentrant ``torch.utils.checkpoint``
 at every occurrence, each occurrence with its own KV cache.  "moe" and
 "swa_moe" blocks replace the dense MLP with :func:`.moe.moe_mlp_local` and
 add its router aux loss to the model's, which ``forward(return_aux=True)``
-returns and ``loss_fn`` weighs in.  The encoder-decoder family is not ported
-yet and raises ``NotImplementedError``.
+returns and ``loss_fn`` weighs in.  The encoder-decoder family is
+:mod:`.whisper`.
 
 The KV cache is kept in the compute dtype or, with ``cfg.kv_cache_dtype ==
 "int8"``, as int8 with per-token, per-head scales (:mod:`.attention`).
@@ -62,8 +62,6 @@ def _kind_theta(kind: str, cfg: ModelConfig) -> float:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot run yet."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("the encoder-decoder family is not ported yet")
     missing = sorted(set(cfg.pattern) - set(PORTED_KINDS))
     if missing:
         raise NotImplementedError(f"block kinds {missing} of {cfg.name} are not ported yet")

@@ -84,7 +84,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     tiny_moe = dataclasses.replace(
         base.reduced(registry.get_config("granite-moe-3b-a800m")), name="tiny-moe", n_heads=6,
         n_kv_heads=2, moe=base.MoEConfig(n_experts=4, top_k=4, d_ff_expert=32), **bf16)
+    tiny_whisper = dataclasses.replace(
+        base.reduced(registry.get_config("whisper-large-v3")), name="tiny-whisper", **bf16)
     monkeypatch.setitem(registry.ARCHS, "tiny-moe", tiny_moe)
+    monkeypatch.setitem(registry.ARCHS, "tiny-whisper", tiny_whisper)
     monkeypatch.setitem(registry.ARCHS, "tiny-mamba", tiny_mamba)
     monkeypatch.setitem(registry.ARCHS, "tiny-zamba", tiny_zamba)
     monkeypatch.setitem(registry.ARCHS, "tiny", tiny)
@@ -94,7 +97,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         BATCH=2, CHECK_POSITIONS=(0, 7, 8, 13), Timer=_HostTimer,
         TRAIN_MODEL="tiny-train", TRAIN_BATCH=2, TRAIN_SEQ=40, TRAIN_LR=1e-2,
         FLASH_CASES=[("h2o-danube train", 2, 40, 8, 2, 16, True, 16),
-                     ("gemma3-1b forward, global", 2, 24, 4, 1, 16, True, None)],
+                     ("gemma3-1b forward, global", 2, 24, 4, 1, 16, True, None),
+                     ("whisper cross", 2, (12, 20), 4, 4, 16, False, None)],
         FLASH_FP32_CASES=[("fp32 non-causal", 1, 20, 4, 1, 16, False, None)],
         RMSNORM_CASES=[(4, 64), (40, 128)], RMSNORM_RESIDUAL_CASES=[(4, 64)],
         RMSNORM_BWD_CASES=[(40, 64), (4, 64)],
@@ -110,7 +114,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         PILOT_TRAIN_LAYERS=None, PILOT_SERVE_PROMPT_LEN=6, PILOT_SERVE_NEW_TOKENS=3,
         PILOT_SERVE_MAX_LEN=16, PILOT_TIMEOUT_S=120.0,
         MOE_MODEL="tiny-moe", MOE_PROMPT_LEN=10, MOE_NEW_TOKENS=4, MOE_MAX_LEN=16, MOE_BATCH=2,
-        MOE_CHECK_POSITIONS=(0, 5, 9, 12),
+        MOE_CHECK_POSITIONS=(0, 5, 9, 12), MOE_REMAT_LAYERS=1,
+        WHISPER_MODEL="tiny-whisper", WHISPER_PROMPT_LEN=4, WHISPER_NEW_TOKENS=6,
+        WHISPER_MAX_LEN=12, WHISPER_BATCH=2, WHISPER_CHECK_POSITIONS=(0, 3, 5, 9),
+        WHISPER_TRAIN_BATCH=2, WHISPER_TRAIN_SEQ=12,
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -187,7 +194,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     dec = kernels["decode_attention"]["cases"]
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
     assert [(c["plan"]["n_split"], c["plan"]["split_len"]) for c in dec] == [
-        (16, 32), (16, 32), (16, 64), (16, 64), (2, 256), (8, 64), (4, 128)]
+        (16, 32), (16, 32), (16, 64), (16, 64), (2, 256), (8, 64), (4, 128), (3, 150), (3, 500)]
     # moe: two engines (bf16 and int8 caches) of 13 steps over 2 layers, and
     # the drop-free and the published-capacity forwards (a third drop-free
     # one when the int8 engine's tokens differ)
@@ -197,6 +204,22 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert moe == {"decode_attention": 2 * 2 * 13, "rmsnorm": 2 * 5 * 13 + 5 * n_fwd,
                    "flash_attention": 2 * n_fwd, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
                    "rmsnorm_residual": 0, "ssd_scan": 0}
+    # moe-train: 2 evals (2 attention, 5 norms each) and 4 remat steps (2 + 2
+    # attention forwards, 2 backwards; 5 + 4 norm forwards, 5 backwards)
+    moe_train = {name: k["launches_by_path"]["moe-train"] for name, k in kernels.items()}
+    assert moe_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
+                         "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
+                         "rmsnorm_residual": 0, "ssd_scan": 0}
+    # whisper (2 encoder + 2 decoder layers): the cross-cache prefill's encoder
+    # (2 attentions, 5 norms), 4 + 6 - 1 engine steps and the one after them
+    # (two decode attentions and 7 norms each), the forward (2 + 2 x 2
+    # attentions, 5 + 7 norms); then training: 2 evals and 4 remat steps
+    # (every layer checkpointed: 6 + 6 attentions, 6 backwards; 12 + 10
+    # norms, 12 backwards)
+    whisper = {name: k["launches_by_path"]["whisper"] for name, k in kernels.items()}
+    assert whisper == {"decode_attention": 10 * 4, "flash_attention": 2 + 6 + 2 * 6 + 4 * 12,
+                       "flash_attention_bwd": 4 * 6, "rmsnorm": 5 + 10 * 7 + 12 + 2 * 12 + 4 * 22,
+                       "rmsnorm_bwd": 4 * 12, "rmsnorm_residual": 0, "ssd_scan": 0}
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",
             "launches_by_path"}

@@ -88,6 +88,8 @@ DECODE_PLANS = [
     ("granite G 3", 4, 8, 3, 64, 512, 278, (8, 64)),
     ("granite G 3 at B 8", 8, 8, 3, 64, 512, 278, (4, 128)),
     ("G 3, empty splits", 1, 2, 3, 64, 1024, 300, (16, 64)),
+    # whisper-large-v3's self cache (20/20 heads, max_len 448) at batch 4
+    ("whisper self", 4, 20, 1, 64, 448, 127, (3, 150)),
 ]
 
 
@@ -126,6 +128,33 @@ def test_decode_kernel_split_plans(cuda, case, dtype):
         _close(out, ref, dtype)
         if b > 1:
             assert bool((out[-1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_over_a_cross_cache(cuda, dtype):
+    """whisper-large-v3's cross-attention decode: [4, 1, 20, 64] over 1500
+    frames, the query and every slot at position 0, so every slot is kept;
+    3 splits of 500 slots (no multiple of the 32-slot tile) on 132 SMs."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    b, sk, h, d = 4, 1500, 20, 64
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert ops.split_plan(b, h, sk, sms) == (3, 500)
+    gen = torch.Generator(device=cuda).manual_seed(sk)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, sk, h, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, sk, h, d, generator=gen, device=cuda).to(dtype)
+    pos_q = torch.zeros(b, device=cuda, dtype=torch.int32)
+    pos_k = torch.zeros(1, sk, device=cuda, dtype=torch.int32).expand(b, sk)
+    out = ops.decode_attention(q, k, v, pos_q, pos_k)
+    ref = decode_attention_ref(q[:, 0], k, v, pos_q, pos_k)[:, None]
+    # every slot kept: the plain softmax over all keys, no mask at all
+    full = torch.softmax(torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), k.float()) * d**-0.5, -1)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+    _close(ref[:, 0], torch.einsum("bhk,bkhd->bhd", full, v.float()), dtype)
 
 
 def test_decode_kernel_is_one_device_kernel(cuda):
@@ -185,7 +214,8 @@ def test_rmsnorm_kernels_at_train_width_with_a_ragged_tile(cuda, dtype):
     _close_grad(dw, dw_ref, dtype)
 
 
-@pytest.mark.parametrize("rows,d", [(1, 64), (5, 1152), (7, 1024), (1022, 2048), (33, 4096)])
+@pytest.mark.parametrize("rows,d", [(1, 64), (5, 1152), (7, 1024), (1022, 2048), (33, 4096),
+                                    (9, 1280), (301, 1536)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, with_residual):
@@ -332,6 +362,28 @@ def test_flash_kernels_match_plain_sq_not_sk(cuda, sq, sk, d, dtype):
     _check_flash(q, k, v, [(True, None), (False, 24)])
 
 
+# the training paths' B1 shapes: (label, B, Sq, Sk, Hq, Hkv, causal) at D 64
+FLASH_PATH_SHAPES = [
+    ("granite-moe train", 2, 8192, 8192, 24, 8, True),
+    ("whisper encoder", 8, 1500, 1500, 20, 20, False),
+    ("whisper decoder self", 8, 448, 448, 20, 20, True),
+    ("whisper cross", 8, 448, 1500, 20, 20, False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_PATH_SHAPES, ids=[c[0] for c in FLASH_PATH_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_training_path_shapes(cuda, case, dtype):
+    """Forward and backward at granite-moe's training shape (G 3, S 8192) and
+    whisper's: the encoder's bidirectional attention, the decoder's causal
+    self-attention and the cross-attention of 448 queries over 1500 keys,
+    whose dK/dV tiles get fewer query rows than key rows."""
+    _, b, sq, sk, hq, hkv, causal = case
+    q, k, v = _flash_inputs(cuda, 64, hq // hkv, dtype, seed=sq + sk, b=b, s=sk, hkv=hkv,
+                            sq=sq if sq != sk else None)
+    _check_flash(q, k, v, [(causal, None)])
+
+
 def test_flash_kernel_rejects_what_it_has_no_instance_for(cuda):
     from repro_torch.kernels.flash_attention import ops
 
@@ -343,7 +395,8 @@ def test_flash_kernel_rejects_what_it_has_no_instance_for(cuda):
         ops.flash_attention(q[..., :32].half(), k[..., :32].half(), k[..., :32].half())
 
 
-@pytest.mark.parametrize("rows,d", [(1, 64), (300, 1152), (4100, 2560)])
+@pytest.mark.parametrize("rows,d", [(1, 64), (300, 1152), (4100, 2560), (3583, 1280),
+                                    (4097, 1536)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, dtype):
     from repro_torch.kernels.rmsnorm import ops
@@ -599,6 +652,107 @@ def test_moe_model_on_card_runs_no_plain_version(cuda, monkeypatch, kv):
     want = full if ref is None else ref
     err = (dec - want).abs().amax(dim=(0, 2)) / want.abs().amax(dim=(0, 2)).clamp_min(1.0)
     assert float(err.max()) < 1e-4, (kv, err)
+
+
+def test_moe_remat_gradients_equal_no_remat_on_card(cuda, monkeypatch):
+    """granite-moe-3b-a800m at every width but cut to 2 layers, bf16, on 2 x
+    1024 tokens: with remat the backward pass reruns each layer's routing,
+    which must pick the forward's experts and slots (so drop the same
+    pairs), and every gradient leaf must agree with the one without remat
+    within one bf16 ulp of the leaf's largest value."""
+    import dataclasses
+
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), n_layers=2)
+    api = build_model(cfg, device=cuda)
+    params = api.init(seed=0)
+    leaves = flatten_tree(params)
+    tensors = [t.requires_grad_(True) for _, t in leaves]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1025), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    dispatch, tables = moe._dispatch_tables, []
+
+    def recording(expert_idx, n_tokens, e_pad, cap):
+        slot_table, token_slots = dispatch(expert_idx, n_tokens, e_pad, cap)
+        tables.append((expert_idx.clone(), token_slots.clone()))
+        return slot_table, token_slots
+
+    _refuse_plain_versions(monkeypatch)
+    monkeypatch.setattr(moe, "_dispatch_tables", recording)
+    grads = {}
+    for remat in (True, False):
+        tables.clear()
+        loss, _ = api.loss_fn(params, batch, remat=remat)
+        grads[remat] = torch.autograd.grad(loss, tensors)
+        assert len(tables) == (2 if remat else 1) * cfg.n_layers
+        if remat:
+            recorded = list(tables)
+    fwd, again = recorded[: cfg.n_layers], recorded[cfg.n_layers :][::-1]
+    for a, b, c in zip(fwd, again, tables):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and torch.equal(a[0], c[0])
+    for (path, _), g, h in zip(leaves, grads[True], grads[False]):
+        diff = (g.float() - h.float()).abs().max().item()
+        assert diff <= 2.0**-7 * h.float().abs().max().item(), (path, diff)
+
+
+def test_whisper_model_on_card_runs_no_plain_version(cuda, monkeypatch):
+    """A whisper smoke model (head_dim 64, fp32) on the card with every plain
+    version made to raise: the encoder and the teacher-forced decoder run
+    B1 (non-causal, causal, cross with Sq != Sk), a decode step B2 over the
+    self and the cross cache, the norms B3a; decode agrees with the forward
+    to 1e-4, and a train step launches every kernel the schedule implies."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.models import build_model, whisper
+    from repro_torch.optim import init_adamw
+    from repro_torch.training import make_train_step
+
+    cfg = dataclasses.replace(get_config("whisper-large-v3-smoke"), head_dim=64)
+    api = build_model(cfg, device=cuda)
+    params = api.init(seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    frames = torch.randn(2, cfg.encdec.n_frames, cfg.d_model, generator=gen, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device=cuda)
+    _refuse_plain_versions(monkeypatch)
+
+    def launches():
+        return (fa_ops.flash_attention.launches, fa_ops.flash_attention.backward_launches,
+                dec_ops.decode_attention.launches, norm_ops.rmsnorm.launches,
+                norm_ops.rmsnorm.backward_launches)
+
+    n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+    fwd_norms = 2 * n_enc + 3 * n_dec + 2
+    with torch.no_grad():
+        before = launches()
+        full = api.forward(params, frames, tokens).float()
+        assert launches() == (before[0] + n_enc + 2 * n_dec, before[1], before[2],
+                              before[3] + fwd_norms, before[4])
+        cache = whisper.prefill_cross_cache(params, frames, api.init_cache(2, 24), cfg)
+        before = launches()
+        for i in range(24):
+            lg, cache = api.decode_step(params, cache, tokens[:, i : i + 1], i)
+            err = (lg[:, 0].float() - full[:, i]).abs().max().item()
+            assert err < 1e-4 * max(1.0, full[:, i].abs().max().item()), (i, err)
+        assert launches() == (before[0], before[1], before[2] + 24 * 2 * n_dec,
+                              before[3] + 24 * (3 * n_dec + 1), before[4])
+    batch = {"frames": frames, "tokens": tokens, "labels": tokens.roll(-1, 1)}
+    before = launches()
+    _, _, m = make_train_step(api, warmup_steps=1)(params, init_adamw(params), batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    # every encoder and decoder layer checkpointed: its attentions and norms
+    # run again in the backward pass; the two final norms do not
+    n_attn = n_enc + 2 * n_dec
+    assert launches() == (before[0] + 2 * n_attn, before[1] + n_attn, before[2],
+                          before[3] + 2 * fwd_norms - 2, before[4] + fwd_norms)
 
 
 def _to(tree, device):
