@@ -17,7 +17,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 bf16, so it is held, row by row and in the mean, to twice the
                 error of the plain version that rounds at the same points).
                 B4 runs as five passes: each is also held against its own
-                plain version on the kernel's own inputs, and timed.  B2
+                plain version on the kernel's own inputs, and timed; so does
+                B4's backward, the port's own kernel (fp32, six passes, at
+                phase 11's shapes and with an initial state and dfinal, G 2
+                and unaligned rows), which must also give the same bits
+                twice.  B2
                 logs its split plan (blocks a cluster, slots a block) and
                 torch.profiler must see one call run exactly one kernel;
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
@@ -81,12 +85,24 @@ Phases, each of which must pass (any failure exits non-zero):
                 held against the teacher-forced forward; then trained on 8 x
                 448 tokens against 1500 frames each on phase 5's schedule.
                 Every plain version raises, the launches are exact;
- 11. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+ 11. ssm-train -- mamba2-370m and zamba2-1.2b at every published width and
+                depth, restored from checkpoint DU files with AdamW state on the
+                device, trained on 4 x 4096 tokens (train_4k's sequence length)
+                on phase 5's schedule, every plain version refused and the
+                launches exact: B4 forward, again for the mamba layers of the
+                stacked groups (remat), and B4's backward once per mamba layer;
+                then, cut to the smallest depth that holds SSM_REMAT_LAYERS
+                layers, a stacked group and a tail, the remat gradients must
+                equal those without remat bit for bit, and in fp32 every
+                gradient leaf must be within SSM_PLAIN_GRAD_TOL of its max |g|
+                of the same loss through the plain versions on the card;
+ 12. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
 served model; granite-moe's with its MoE layers' share), of one train step
 (granite-moe's with its MoE layers' share, and one MoE layer's forward and
-backward timed alone) and of one mamba2-370m prefill.
+backward timed alone; each SSM model's with B4 forward and backward) and of
+one mamba2-370m prefill.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -249,11 +265,35 @@ SSD_EDGE_CASES = [
     ("initial state, 128 chunks", 1, 32768, 4, 64, 128, 1, "float32", True),
 ]
 SSD_CHUNK = 256
+# SSD backward (B4's backward, fp32): (label, B, S, H, P, N, G, chunk, initial
+# state, dfinal, unaligned rows); the timed cases are phase 11's training
+# shapes, the edge cases are only held against the plain version: an initial
+# state with a gradient of the final state, G 2, and x and dy as views whose
+# rows lie 65 elements apart in a ragged chunk of 100 (two 64-row tiles)
+SSD_BWD_CASES = [
+    ("mamba2-370m train", 4, 4096, 32, 64, 128, 1, 256, False, False, False),
+    ("zamba2-1.2b train", 4, 4096, 64, 64, 64, 1, 256, False, False, False),
+]
+SSD_BWD_EDGE_CASES = [
+    ("initial state, dfinal", 2, 512, 8, 64, 128, 1, 256, True, True, False),
+    ("G 2", 2, 512, 8, 64, 64, 2, 256, False, True, False),
+    ("unaligned rows, chunk 100", 2, 300, 4, 64, 128, 1, 100, True, True, True),
+]
+
+# phase 11: SSM_MODELS trained at every width and depth on train_4k's
+# sequence length (repro/configs/base.py), cut from its 256 sequences to 4
+# so that a step fits the run's time, on phase 5's schedule; the remat and
+# plain-version checks at the smallest depth that holds SSM_REMAT_LAYERS
+# layers, a whole stacked group and a tail
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 4096
+SSM_REMAT_LAYERS = 4
+SSM_PLAIN_GRAD_TOL = 1e-3  # fp32 kernels against fp32 plain versions, of a leaf's max |g|
 
 DECODE_SRC = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 RMSNORM_SRC = "src/repro_torch/kernels/rmsnorm/rmsnorm.py"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_BWD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
 
 
 def sync(torch) -> None:
@@ -422,6 +462,7 @@ def counters():
         ("flash_attention_bwd", fa_ops.flash_attention, "backward_launches"),
         ("rmsnorm_bwd", norm_ops.rmsnorm, "backward_launches"),
         ("ssd_scan", ssd_ops.ssd, "launches"),
+        ("ssd_scan_bwd", ssd_ops.ssd, "backward_launches"),
     ]
 
 
@@ -856,6 +897,121 @@ def ssd_cases(torch, timer, gen):
     return cases
 
 
+def ssd_bwd_cases(torch, timer, gen):
+    """B4's backward against its plain version (fp32: 1e-4 relative plus
+    1e-5 x the tensor's largest value) at phase 11's shapes and the edge
+    cases: pass by pass on the forward kernel's scratch, and whole through
+    ``ops.ssd``'s autograd Function against ``ssd_bwd_ref``; two calls must
+    be equal bit for bit.  Returns the timed cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_bwd_scratch_ref
+
+    cases = []
+    timed = {c[0] for c in SSD_BWD_CASES}
+    for label, b, s, h, p, n, g, chunk, init, dfin, unaligned in SSD_BWD_CASES + SSD_BWD_EDGE_CASES:
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=DEVICE) * scale
+
+        def rows65(t):  # a view whose rows lie 65 elements apart
+            return torch.cat([t, t[..., :1]], dim=-1)[..., :p] if unaligned else t
+
+        x, dy = rows65(rnd(b, s, h, p)), rows65(rnd(b, s, h, p))
+        dA = -F.softplus(rnd(b, s, h))
+        bc = rnd(b, s, 2 * g * n, scale=0.5)  # B and C as views of the conv output
+        B_, C_ = bc[..., : g * n].view(b, s, g, n), bc[..., g * n :].view(b, s, g, n)
+        state = rnd(b, h, p, n) if init else None
+        dfinal = rnd(b, h, p, n) if dfin else None
+        q = min(chunk, s)
+        name = (f"ssd_scan_bwd {label} [{b},{s},{h},{p}] N={n} G={g} chunk {q}"
+                + (" initial state" if init else "") + (" dfinal" if dfin else ""))
+        ws = ops.workspace(x, dA, B_, C_, chunk, state)
+        for pn in ops.PASSES:
+            ops.run_pass(ws, pn)
+        bw = ops.bwd_workspace(ws, dy, dfinal)
+        pass_errs = {}
+        for pn in ops.BWD_PASSES:
+            ops.run_pass(bw, pn)
+            for field, ref in ops.plain_pass(bw, pn).items():
+                scale = max(1.0, ref.abs().max().item())
+                pass_errs[f"{pn}.{field}"] = check_close(f"{name} pass {pn} ({field})",
+                                                         getattr(bw, field), ref, 1e-4, 1e-5 * scale)
+                del ref
+        sync(torch)
+        log(f"kernels: {name} passes max|err| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in pass_errs.items()))
+
+        def grads():
+            leaves = [t.detach().requires_grad_() for t in (x, dA, bc)]
+            st = state.detach().requires_grad_() if init else None
+            view = leaves[2]
+            y, final = ops.ssd(leaves[0], leaves[1], view[..., : g * n].view(b, s, g, n),
+                               view[..., g * n :].view(b, s, g, n), chunk, st)
+            outs, douts = [y], [dy]
+            if dfin:
+                outs.append(final)
+                douts.append(dfinal)
+            return torch.autograd.grad(outs, leaves + ([st] if init else []), douts)
+
+        got, again = grads(), grads()
+        want = ssd_bwd_ref(x, dA, B_, C_, q, state, dy, dfinal)
+        sync(torch)
+        want_bc = torch.cat([want[2].reshape(b, s, g * n), want[3].reshape(b, s, g * n)], dim=-1)
+        err = 0.0
+        for what, gv, av, wv in zip(("dx", "d_dA", "dB and dC", "d_initial"), got, again,
+                                    (want[0], want[1], want_bc, want[4])):
+            if not torch.equal(gv, av):
+                raise AssertionError(f"{name}: {what} differs between two calls")
+            err = max(err, check_close(f"{name} {what}", gv, wv, 1e-4,
+                                       1e-5 * max(1.0, wv.abs().max().item())))
+        del got, again, want, want_bc
+        if label not in timed:
+            log(f"kernels: {name} max|err| {err:.2e} (rtol 1e-4, atol 1e-5 x max|ref|), two "
+                "calls equal bit for bit")
+            del ws, bw
+            continue
+        ms = timer(lambda: [ops.run_pass(bw, pn) for pn in ops.BWD_PASSES])
+        plain = timer(lambda: ssd_bwd_scratch_ref(x, B_, C_, ws.cum, ws.cb, ws.prev, dy, dfinal))
+        passes_ms = {pn: timer(lambda pn=pn: ops.run_pass(bw, pn)) for pn in ops.BWD_PASSES}
+        del ws, bw
+        # the work the function needs on these inputs, per (b, h, chunk): four
+        # products on the lower triangle (Q(Q+1)/2 pairs): dy x^T and S^T dy
+        # over P, dM^T C and dM B over N; and four Q x P x N state products:
+        # (dy o e)^T C and (dy o e) prev, none in the first chunk without an
+        # initial state (prev is 0 and d_initial unused), B g^T and x g, none
+        # in the last chunk without dfinal (g is 0)
+        chunks, tri = s // q, q * (q + 1) // 2
+        flops = (b * h * chunks * 2 * tri * (2 * p + 2 * n)
+                 + b * h * 2 * q * p * n * 2 * ((chunks - (0 if init else 1))
+                                                + (chunks - (0 if dfin else 1))))
+        n_bytes = 4 * (3 * b * s * h * p  # x, dy in, dx out
+                       + 2 * b * s * h  # cum in, d_dA out
+                       + 4 * b * s * g * n  # B, C in, dB, dC out
+                       + b * chunks * g * q * q  # C B^T in
+                       + b * chunks * h * p * n  # prev in
+                       + b * h * p * n * ((1 if init else 0) + (1 if dfin else 0)))
+        # the kernel's products run in 3xTF32, as the forward's do: its bound is
+        # that work at the TF32 peak; the same work on the fp32 CUDA cores is
+        # logged beside it
+        bound, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
+        fp32_bound = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        cases.append(dict(case=label, B=b, S=s, H=h, P=p, N=n, G=g, chunk=q, flops=flops,
+                          bytes=n_bytes, ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
+                          bound_by=by, fp32_bound_ms=fp32_bound, passes_ms=passes_ms,
+                          pass_max_abs_err=pass_errs, max_abs_err=err))
+        log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, no library call, bound "
+            f"{bound:.4f} by {by} in 3xTF32, {fp32_bound:.4f} on the fp32 CUDA cores; "
+            f"{flops / 1e9:.4g} GFLOP, "
+            f"{n_bytes / 1e6:.4g} MB, {flops / ms / 1e9:.1f} TFLOP/s), max|err| {err:.2e} "
+            "(rtol 1e-4, atol 1e-5 x max|ref|), two calls equal bit for bit; passes "
+            + ", ".join(f"{k} {v:.4f}" for k, v in passes_ms.items()) + " ms")
+        del x, dy, dA, bc, B_, C_, state, dfinal
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernels(torch, seed):
     timer = Timer(torch)
     gen = torch.Generator(device=DEVICE)
@@ -870,6 +1026,7 @@ def phase_kernels(torch, seed):
         "flash_attention_bwd": bwd,
         "rmsnorm_bwd": rmsnorm_bwd_cases(torch, timer, gen),
         "ssd_scan": ssd_cases(torch, timer, gen),
+        "ssd_scan_bwd": ssd_bwd_cases(torch, timer, gen),
     }
     del timer
     if DEVICE == "cuda":
@@ -920,7 +1077,7 @@ def phase_serve(torch, seed, smi):
     # residual variant is held against its plain version in phase 3 only
     expected = {"decode_attention": n_attn * steps, "rmsnorm": n_norm * steps,
                 "rmsnorm_residual": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-                "rmsnorm_bwd": 0, "ssd_scan": 0}
+                "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected} ({steps} steps)")
     if new.shape != (BATCH, NEW_TOKENS) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
@@ -1058,18 +1215,21 @@ def phase_profile(torch, engine, cache, seq):
 # ------------------------------------------------------------ phase 5
 def train_launch_schedule(cfg) -> dict:
     """Launches per train step that the remat schedule implies: the forward's
-    attentions and norms run once forward and once backward, and the
-    checkpointed layers run forward again in the backward pass: the stacked
-    groups of a decoder-only model (not its tail or final norm), every
-    encoder and decoder layer of whisper (not the two final norms)."""
+    attentions, SSD scans and norms run once forward and once backward, and
+    the checkpointed layers run forward again in the backward pass: the
+    stacked groups of a decoder-only model (not its tail or final norm),
+    every encoder and decoder layer of whisper (not the two final norms)."""
     fwd = path_launches(cfg, "forward")
     if cfg.family == "encdec":
-        remat = dict(flash_attention=fwd["flash_attention"], rmsnorm=fwd["rmsnorm"] - 2)
+        remat = dict(flash_attention=fwd["flash_attention"], ssd_scan=0, rmsnorm=fwd["rmsnorm"] - 2)
     else:
-        layers = (cfg.n_layers // len(cfg.pattern)) * len(cfg.pattern)
-        remat = dict(flash_attention=layers, rmsnorm=2 * layers)
+        stacked = cfg.layer_kinds()[: (cfg.n_layers // len(cfg.pattern)) * len(cfg.pattern)]
+        n_mamba = stacked.count("mamba")
+        remat = dict(flash_attention=len(stacked) - n_mamba, ssd_scan=n_mamba,
+                     rmsnorm=2 * len(stacked))
     return dict(fwd, flash_attention=fwd["flash_attention"] + remat["flash_attention"],
                 flash_attention_bwd=fwd["flash_attention"],
+                ssd_scan=fwd["ssd_scan"] + remat["ssd_scan"], ssd_scan_bwd=fwd["ssd_scan"],
                 rmsnorm=fwd["rmsnorm"] + remat["rmsnorm"], rmsnorm_bwd=fwd["rmsnorm"])
 
 
@@ -1215,6 +1375,10 @@ def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> f
             part = ("dK/dV" if "dkv" in name else "dQ" if "_dq_" in name
                     else "delta" if "delta" in name else "other")
             g = f"B1 flash_attention backward, {part} (CUDA)"
+        elif "ssd_bwd" in name:
+            g = "B4 ssd_scan backward (CUDA)"
+        elif "ssd_scan" in name:
+            g = "B4 ssd_scan forward (CUDA)"
         elif "rmsnorm_bwd" in name or "rmsnorm_dw" in name:
             g = "B3a rmsnorm backward (Triton)"
         elif "rmsnorm_kernel" in name:
@@ -1526,7 +1690,7 @@ def plain_versions_forbidden():
     names = [(dec_ops, "decode_attention_ref"), (fa_ops, "flash_attention_ref"),
              (fa_ops, "flash_attention_bwd_ref"), (norm_ops, "rmsnorm_ref"),
              (norm_ops, "rmsnorm_bwd_ref"), (norm_ops, "rmsnorm_residual_ref"),
-             (ssd_ops, "ssd_ref")]
+             (ssd_ops, "ssd_ref"), (ssd_ops, "ssd_bwd_ref")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in names]
 
     def refuse(name):
@@ -1536,6 +1700,39 @@ def plain_versions_forbidden():
 
     for mod, name, _ in saved:
         setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """While on, the models call the kernels' plain versions (differentiable
+    PyTorch) instead of the wrappers, on whatever device their tensors are:
+    a reference loss and gradients on the card."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.models import attention, layers, mamba2
+
+    def rmsnorm(x, w, eps=1e-6, residual=None):
+        if residual is not None:
+            raise AssertionError("the models call no residual RMSNorm")
+        return rmsnorm_ref(x, w, eps)
+
+    def flash_attention(q, k, v, *, causal=True, window=None):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)[0]
+
+    def ssd(x, dA, B, C, chunk=256, initial_state=None):
+        return ssd_ref(x, dA, B, C, min(chunk, x.shape[1]), initial_state)
+
+    patches = [(layers, "rmsnorm", rmsnorm), (attention, "flash_attention", flash_attention),
+               (mamba2, "ssd", ssd)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
@@ -2119,6 +2316,120 @@ def phase_moe_train(torch, seed, smi, profile: bool = False):
     return launches, out
 
 
+# ------------------------------------------------------------ phase 11
+def ssm_grads(torch, api, params, batch, remat: bool):
+    """(loss, the gradient of every param leaf) of ``loss_fn``."""
+    from repro_torch.checkpoint import flatten_tree
+
+    tensors = [t.requires_grad_(True) for _, t in flatten_tree(params)]
+    loss, _ = api.loss_fn(params, batch, remat=remat)
+    grads = torch.autograd.grad(loss, tensors)
+    return float(loss.detach()), grads
+
+
+def ssm_train_checks(torch, seed, cfg, batch) -> dict:
+    """At the smallest depth that holds SSM_REMAT_LAYERS layers, a whole
+    stacked group and a tail (the cut is of depth only; zamba2's group holds
+    the shared attention block): the gradients of ``loss_fn`` with remat
+    must equal those without bit for bit, every plain version refused; and
+    in fp32, on the batch's first row, every gradient leaf through the
+    kernels must be within SSM_PLAIN_GRAD_TOL of its max |g| of the same
+    loss through the plain versions on the card (``plain_versions_on_card``)
+    -- dB and dC reach the conv output ``bcc`` as slices of its gradient, so
+    a fault there shows in ``conv_bc_w``, ``conv_bc_b`` and ``bc_proj``."""
+    import dataclasses
+
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.models import build_model
+
+    n = max(SSM_REMAT_LAYERS, len(cfg.pattern) + 2)
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    api = build_model(cfg, device=DEVICE)
+    params = api.init(seed=seed)
+    paths = [path for path, _ in flatten_tree(params)]
+    with plain_versions_forbidden():
+        runs = {remat: ssm_grads(torch, api, params, batch, remat) for remat in (True, False)}
+    differ = [path for path, g, h in zip(paths, runs[True][1], runs[False][1])
+              if not torch.equal(g, h)]
+    loss_remat = runs[True][0]
+    if differ or loss_remat != runs[False][0]:
+        raise AssertionError(f"ssm-train: with remat, loss {loss_remat} and the gradients of "
+                             f"{differ} differ from those without ({runs[False][0]})")
+    del runs, params, api
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg32, device=DEVICE)
+    params = api.init(seed=seed)
+    row = {k: v[:1] for k, v in batch.items()}
+    with plain_versions_forbidden():
+        loss_k, grads_k = ssm_grads(torch, api, params, row, remat=True)
+    with plain_versions_on_card():
+        loss_p, grads_p = ssm_grads(torch, api, params, row, remat=True)
+    worst, worst_path = 0.0, None
+    for path, g, h in zip(paths, grads_k, grads_p):
+        diff = (g - h).abs().max().item()
+        scale = h.abs().max().item()
+        ratio = diff / scale if scale > 0 else diff
+        if ratio >= worst:
+            worst, worst_path = ratio, path
+        if not math.isfinite(diff) or diff > SSM_PLAIN_GRAD_TOL * scale:
+            raise AssertionError(f"ssm-train: {path} gradient through the kernels differs by "
+                                 f"{diff:.3e} from the plain versions' (its max |g| {scale:.3e})")
+    log(f"ssm-train: {cfg.name} cut to {n} layers: loss {loss_remat:.6f} and all {len(paths)} "
+        f"gradient leaves with remat equal those without bit for bit; in fp32 on "
+        f"{tuple(row['tokens'].shape)} tokens every leaf through the kernels within {worst:.3e} "
+        f"of its max |g| of the plain versions' on the card (worst {worst_path}; gate "
+        f"{SSM_PLAIN_GRAD_TOL}), loss {loss_k:.6f} vs {loss_p:.6f}")
+    del grads_k, grads_p, params, api
+    return dict(layers=n, leaves=len(paths), remat_loss=loss_remat, plain_loss=[loss_k, loss_p],
+                plain_max_rel_diff=worst, plain_worst_leaf=worst_path)
+
+
+def phase_ssm_train(torch, seed, smi, profile: bool = False):
+    """SSM_MODELS at every published width and depth, restored from
+    checkpoint files and trained on SSM_TRAIN_BATCH x SSM_TRAIN_SEQ tokens
+    on phase 5's schedule with AdamW state on the device, every plain version
+    refused and the launches exact (B4 forward, again for the mamba layers
+    of the stacked groups, and its backward once per mamba layer); then the
+    remat and plain-version checks.  Returns (launches, results)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    launches, results = {name: 0 for name, _, _ in counters()}, {}
+    for model in SSM_MODELS:
+        t0 = time.perf_counter()
+        cfg = get_config(model)
+        tag = f"ssm-train {model}"
+        api = build_model(cfg, device=DEVICE)
+        params, gib, n_params = restore_params(api, seed, "train-chip-smoke")
+        sync(torch)
+        kinds = cfg.layer_kinds()
+        log(f"{tag}: {cfg.name} ({cfg.n_layers} layers: {kinds.count('mamba')} mamba of "
+            f"{cfg.ssm.n_heads(cfg.d_model)} heads of {cfg.ssm.head_dim}, d_state "
+            f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, {len(kinds) - kinds.count('mamba')} "
+            f"attention; d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+            f"params) restored from {gib:.2f} GiB of checkpoint files in "
+            f"{time.perf_counter() - t0:.1f} s")
+        batch = token_batch(torch, cfg, seed, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+        with plain_versions_forbidden():
+            params, opt, train_step, model_launches, out = run_train(
+                torch, smi, tag, api, params, batch, SSM_TRAIN_BATCH * SSM_TRAIN_SEQ)
+        launches = {k: v + model_launches[k] for k, v in launches.items()}
+        if profile:
+            out["profile_step_s"] = phase_profile_train(torch, params, opt, batch, train_step, tag)
+        del params, opt, train_step
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        out["checks"] = ssm_train_checks(torch, seed, cfg, batch)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        log(f"{tag}: {time.perf_counter() - t0:.1f} s")
+        results[model] = out
+    return launches, results
+
+
 # ------------------------------------------------------------ phase 10
 def phase_whisper(torch, seed, smi, profile: bool = False):
     """WHISPER_MODEL at every width and depth from checkpoint files, every
@@ -2297,6 +2608,10 @@ def main() -> int:
     whisper_launches, whisper_out = phase_whisper(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"whisper: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ssm_train_launches, ssm_train = phase_ssm_train(torch, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    log(f"ssm-train: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -2313,10 +2628,12 @@ def main() -> int:
                                 "train"),
         "rmsnorm_bwd": ("triton", RMSNORM_SRC, "src/repro/models/layers.py:31", "train"),
         "ssd_scan": ("cuda", SSD_SRC, "src/repro/kernels/ssd_scan/ssd_scan.py:105", "ssm"),
+        # replaces the autodiff of the jnp reference ssd_chunked
+        "ssd_scan_bwd": ("cuda", SSD_BWD_SRC, "src/repro/models/mamba2.py:93", "ssm-train"),
     }
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
                "pilot": pilot_launches, "moe": moe_launches_all, "moe-train": moe_train_launches,
-               "whisper": whisper_launches}
+               "whisper": whisper_launches, "ssm-train": ssm_train_launches}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -2341,6 +2658,7 @@ def main() -> int:
     log("moe: " + json.dumps(moe_out))
     log("moe-train: " + json.dumps(moe_train))
     log("whisper: " + json.dumps(whisper_out))
+    log("ssm-train: " + json.dumps(ssm_train))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,12 @@ Nothing here builds or imports a kernel when the package is imported.
 The wrappers are ``decode_attention.ops.decode_attention``,
 ``flash_attention.ops.flash_attention`` (an autograd Function with a
 backward kernel), ``rmsnorm.ops.rmsnorm`` (likewise) and
-``ssd_scan.ops.ssd`` (forward only).  Each counts its launches in integer
-attributes (``launches``, and ``backward_launches`` / ``residual_launches``
-where it has them) through :func:`count_launch`, which takes a lock: serve
-and train CUs call the wrappers from several agent threads at once.
+``ssd_scan.ops.ssd`` (likewise: on CUDA tensors its backward launches the
+port's own backward kernel, on CPU tensors it runs ``ssd_bwd_ref``).  Each
+counts its launches in integer attributes (``launches``, and
+``backward_launches`` / ``residual_launches`` where it has them) through
+:func:`count_launch`, which takes a lock: serve and train CUs call the
+wrappers from several agent threads at once.
 """
 
 import threading

@@ -35,6 +35,7 @@ SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
+    "ssd_scan_bwd": "ssd_scan/csrc/ssd_scan_bwd.cu",
 }
 
 _lock = threading.Lock()

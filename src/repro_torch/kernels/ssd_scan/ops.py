@@ -1,15 +1,20 @@
-"""Wrapper of the SSD chunk-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the SSD chunk-scan kernels (``csrc/ssd_scan.cu``, forward, and
+``csrc/ssd_scan_bwd.cu``, backward).
 
-On CPU tensors it runs the plain version in :mod:`.ref`; on CUDA tensors it
-launches the kernel or raises, with or without an initial state.
-``ssd.launches`` counts the kernel's calls, one per :func:`ssd` on the card
-(the plain version does not count).  There is no backward kernel: a CUDA
-call that needs a gradient raises ``NotImplementedError``.
+:func:`ssd` is a ``torch.autograd.Function``.  On CUDA tensors its forward
+launches the forward kernel and saves the kernel's own scratch (cum, C B^T
+and the state entering each chunk), and its backward launches the backward
+kernel on them, or either raises; on CPU tensors they run the plain
+versions in :mod:`.ref` (``ssd_ref``, ``ssd_bwd_ref``), with or without an
+initial state.  ``ssd.launches`` counts forward calls on the card and
+``ssd.backward_launches`` backward calls (six kernels each); the plain
+versions do not count.
 
-The kernel runs as five passes (``PASSES``) over scratch that
-:func:`workspace` allocates; :func:`run_pass` runs one of them, the kernel's
-on CUDA tensors and its plain version on CPU tensors, and
-:func:`plain_pass` computes a pass's plain version from the workspace's
+The forward kernel runs as five passes (``PASSES``) over scratch that
+:func:`workspace` allocates, the backward as six (``BWD_PASSES``) over
+scratch that :func:`bwd_workspace` allocates; :func:`run_pass` runs one of
+them, the kernel's on CUDA tensors and its plain version on CPU tensors,
+and :func:`plain_pass` computes a pass's plain version from the workspace's
 current contents, so that a fault is found in the pass that makes it.
 """
 
@@ -23,7 +28,9 @@ import torch
 
 from .. import build, count_launch
 from .ref import (
-    ssd_carry_ref, ssd_cb_ref, ssd_chunk_states_ref, ssd_cum_ref, ssd_output_ref, ssd_ref,
+    ssd_bwd_carry_ref, ssd_bwd_dA_ref, ssd_bwd_dc_ref, ssd_bwd_dprev_ref, ssd_bwd_dx_ref,
+    ssd_bwd_fold_ref, ssd_bwd_ref, ssd_carry_ref, ssd_cb_ref, ssd_chunk_states_ref,
+    ssd_cum_ref, ssd_output_ref, ssd_ref,
 )
 
 #: the instances the CUDA source is compiled for
@@ -36,6 +43,9 @@ _ROWS = 128  # kR of the CUDA source, the output pass's rows a block: C B^T rows
 #: the kernel's passes in order, each the bit ``1 << index`` of the launch
 PASSES = ("cum", "cb", "chunk_states", "carry", "output")
 _ALL = (1 << len(PASSES)) - 1
+#: the backward kernel's passes in order, likewise; it has fp32 instances only
+BWD_PASSES = ("dprev", "dcarry", "dx", "dc", "ddA", "fold")
+_BWD_ALL = (1 << len(BWD_PASSES)) - 1
 
 _Strides = ctypes.c_longlong * 3
 
@@ -50,6 +60,22 @@ class SsdArgs(ctypes.Structure):
         + [(n, ctypes.c_void_p) for n in (
             "x", "dA", "B", "C", "init", "y", "final_state", "cum", "cb", "states", "prev")]
         + [(n, _Strides) for n in ("x_s", "a_s", "b_s", "c_s", "y_s")]
+        + [("stream", ctypes.c_void_p)]
+    )
+
+
+class SsdBwdArgs(ctypes.Structure):
+    """The C struct ``SsdBwdArgs`` of the backward's CUDA source, field for
+    field."""
+
+    _fields_ = (
+        [(n, ctypes.c_int) for n in (
+            "batch", "seq", "heads", "groups", "head_dim", "d_state", "chunk", "has_dfinal",
+            "vec")]
+        + [(n, ctypes.c_void_p) for n in (
+            "x", "B", "C", "dy", "cum", "cb", "prev", "dfinal", "dprev", "dstate", "dx", "dBh",
+            "dCh", "dcum_row", "dcum_col", "dw", "ddecay", "d_init", "d_dA", "dB", "dC")]
+        + [(n, _Strides) for n in ("x_s", "b_s", "c_s", "dy_s")]
         + [("stream", ctypes.c_void_p)]
     )
 
@@ -75,17 +101,45 @@ class Workspace:
     final: torch.Tensor
 
 
-_entry = None
+@dataclass
+class BwdWorkspace:
+    """One backward of a scan: the forward's inputs and saved scratch (a
+    :class:`Workspace` whose passes 1-4 ran), ``dy`` ``[B, S, H, P]`` and
+    ``dfinal`` ``[B, H, P, N]`` (or None), the kernel's scratch (dprev and
+    dstate ``[B, nC, H, P, N]``, each head's dB and dC ``[B, S, H, N]``, the
+    parts of dcum ``[B, H, nC, Q]`` and the chunk-decay term ``[B, H, nC]``)
+    and its outputs (dx ``[B, S, H, P]``, d_dA ``[B, S, H]``, dB and dC ``[B,
+    S, G, N]``, d_init ``[B, H, P, N]``), all fp32."""
+
+    fwd: Workspace
+    dy: torch.Tensor
+    dfinal: Optional[torch.Tensor]
+    dprev: torch.Tensor
+    dstate: torch.Tensor
+    dBh: torch.Tensor
+    dCh: torch.Tensor
+    dcum_row: torch.Tensor
+    dcum_col: torch.Tensor
+    dw: torch.Tensor
+    ddecay: torch.Tensor
+    dx: torch.Tensor
+    d_dA: torch.Tensor
+    dB: torch.Tensor
+    dC: torch.Tensor
+    d_init: torch.Tensor
 
 
-def _launcher():
-    global _entry
-    if _entry is None:
-        fn = build.load("ssd_scan").ssd_scan_launch
-        fn.argtypes = [ctypes.POINTER(SsdArgs), ctypes.c_int]
+_entries = {}
+
+
+def _entry(lib: str, fn_name: str, args_type):
+    fn = _entries.get(fn_name)
+    if fn is None:
+        fn = getattr(build.load(lib), fn_name)
+        fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_int]
         fn.restype = ctypes.c_int
-        _entry = fn
-    return _entry
+        _entries[fn_name] = fn
+    return fn
 
 
 def _check(x, dA, B, C, chunk, initial_state) -> int:
@@ -184,14 +238,91 @@ def _launch(ws: Workspace, passes: int) -> None:
         y_s=_Strides(*ws.y.stride()[:3]),
         stream=torch.cuda.current_stream(x.device).cuda_stream,
     )
-    rc = _launcher()(ctypes.byref(a), passes)
+    rc = _entry("ssd_scan", "ssd_scan_launch", SsdArgs)(ctypes.byref(a), passes)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (cudaError {rc})")
 
 
-def plain_pass(ws: Workspace, name: str) -> Dict[str, torch.Tensor]:
-    """The plain version of pass ``name`` on the workspace's inputs and its
-    scratch as it stands: the values of the fields the pass writes."""
+def _check_bwd_kernel(x, B, C) -> None:
+    """What the backward kernel takes beyond :func:`_check_kernel`'s rules:
+    fp32 x, B and C (as both models give them)."""
+    if x.dtype != torch.float32 or B.dtype != torch.float32 or C.dtype != torch.float32:
+        raise NotImplementedError(
+            f"ssd backward kernel has no instance for {x.dtype} inputs (built for float32)"
+        )
+
+
+def bwd_workspace(
+    ws: Workspace, dy: Optional[torch.Tensor], dfinal: Optional[torch.Tensor] = None
+) -> BwdWorkspace:
+    """The backward of the scan whose forward scratch ``ws`` holds (passes
+    1-4 run), for the gradients ``dy`` of y (None: zeros) and ``dfinal``
+    of the final state (None: zeros), with its scratch and outputs
+    allocated (not filled), for :func:`run_pass` and :func:`plain_pass`."""
+    x, B = ws.x, ws.B
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc, q = s // ws.chunk, ws.chunk
+    if dy is None:
+        dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if dy.shape != x.shape or (dfinal is not None and dfinal.shape != (b, h, p, n)):
+        raise ValueError(f"ssd: dy {tuple(dy.shape)} / dfinal for x {tuple(x.shape)}")
+    if x.device.type == "cuda":
+        _check_bwd_kernel(x, B, ws.C)
+        if dy.dtype != torch.float32 or (dfinal is not None and dfinal.dtype != torch.float32):
+            raise TypeError("ssd: dy and dfinal must be float32")
+        if dy.stride(3) != 1:
+            dy = dy.contiguous()  # autograd may hand over a broadcast view
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return BwdWorkspace(
+        fwd=ws, dy=dy, dfinal=dfinal,
+        dprev=torch.empty((b, nc, h, p, n), **f32),
+        dstate=torch.empty((b, nc, h, p, n), **f32),
+        dBh=torch.empty((b, s, h, n), **f32),
+        dCh=torch.empty((b, s, h, n), **f32),
+        dcum_row=torch.empty((b, h, nc, q), **f32),
+        dcum_col=torch.empty((b, h, nc, q), **f32),
+        dw=torch.empty((b, h, nc, q), **f32),
+        ddecay=torch.empty((b, h, nc), **f32),
+        dx=torch.empty((b, s, h, p), **f32),
+        d_dA=torch.empty((b, s, h), **f32),
+        dB=torch.empty((b, s, g, n), **f32),
+        dC=torch.empty((b, s, g, n), **f32),
+        d_init=torch.empty((b, h, p, n), **f32),
+    )
+
+
+def _launch_bwd(bw: BwdWorkspace, passes: int) -> None:
+    f = bw.fwd
+    x, B = f.x, f.B
+    b, s, h, p = x.shape
+    a = SsdBwdArgs(
+        batch=b, seq=s, heads=h, groups=B.shape[2], head_dim=p, d_state=B.shape[3],
+        chunk=f.chunk, has_dfinal=int(bw.dfinal is not None), vec=int(_aligned(x, B, f.C, bw.dy)),
+        x=x.data_ptr(), B=B.data_ptr(), C=f.C.data_ptr(), dy=bw.dy.data_ptr(),
+        cum=f.cum.data_ptr(), cb=f.cb.data_ptr(), prev=f.prev.data_ptr(),
+        dfinal=bw.dfinal.data_ptr() if bw.dfinal is not None else None,
+        **{name: getattr(bw, name).data_ptr() for name in (
+            "dprev", "dstate", "dx", "dBh", "dCh", "dcum_row", "dcum_col", "dw", "ddecay",
+            "d_init", "d_dA", "dB", "dC")},
+        x_s=_Strides(*x.stride()[:3]), b_s=_Strides(*B.stride()[:3]),
+        c_s=_Strides(*f.C.stride()[:3]), dy_s=_Strides(*bw.dy.stride()[:3]),
+        stream=torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    rc = _entry("ssd_scan_bwd", "ssd_scan_bwd_launch", SsdBwdArgs)(ctypes.byref(a), passes)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed (cudaError {rc})")
+
+
+def plain_pass(ws, name: str) -> Dict[str, torch.Tensor]:
+    """The plain version of pass ``name`` (of ``PASSES`` on a
+    :class:`Workspace`, of ``BWD_PASSES`` on a :class:`BwdWorkspace`) on the
+    workspace's inputs and its scratch as it stands: the values of the
+    fields the pass writes."""
+    if name in BWD_PASSES:
+        return _plain_bwd_pass(ws, name)
     if name == "cum":
         return {"cum": ssd_cum_ref(ws.dA, ws.chunk)}
     if name == "cb":
@@ -203,19 +334,83 @@ def plain_pass(ws: Workspace, name: str) -> Dict[str, torch.Tensor]:
         return {"prev": prev, "final": final}
     if name == "output":
         return {"y": ssd_output_ref(ws.x, ws.C, ws.cb, ws.cum, ws.prev)}
-    raise ValueError(f"ssd: no pass {name!r}; the passes are {PASSES}")
+    raise ValueError(f"ssd: no pass {name!r}; the passes are {PASSES} and {BWD_PASSES}")
 
 
-def run_pass(ws: Workspace, name: str) -> None:
-    """Runs pass ``name`` into the workspace: the kernel's on CUDA tensors,
-    the plain version on CPU tensors.  Not counted in ``ssd.launches``."""
-    if name not in PASSES:
-        raise ValueError(f"ssd: no pass {name!r}; the passes are {PASSES}")
-    if ws.x.device.type == "cuda":
-        _launch(ws, 1 << PASSES.index(name))
+def _plain_bwd_pass(bw: BwdWorkspace, name: str) -> Dict[str, torch.Tensor]:
+    f = bw.fwd
+    if name == "dprev":
+        return {"dprev": ssd_bwd_dprev_ref(bw.dy, f.C, f.cum)}
+    if name == "dcarry":
+        dstate, d_init = ssd_bwd_carry_ref(bw.dprev, f.cum, bw.dfinal)
+        return {"dstate": dstate, "d_init": d_init}
+    if name == "dx":
+        return ssd_bwd_dx_ref(f.x, bw.dy, f.B, f.C, f.cb, f.cum, f.prev, bw.dstate)
+    if name == "dc":
+        return ssd_bwd_dc_ref(f.x, bw.dy, f.B, f.C, f.cb, f.cum, f.prev)
+    if name == "ddA":
+        return {"d_dA": ssd_bwd_dA_ref(bw.dcum_row, bw.dcum_col, bw.dw, bw.ddecay)}
+    dB, dC = ssd_bwd_fold_ref(bw.dBh, bw.dCh, f.B.shape[2])
+    return {"dB": dB, "dC": dC}
+
+
+def run_pass(ws, name: str) -> None:
+    """Runs pass ``name`` into the workspace (a forward pass into a
+    :class:`Workspace`, a backward pass into a :class:`BwdWorkspace`): the
+    kernel's on CUDA tensors, the plain version on CPU tensors.  Not counted
+    in ``ssd.launches`` or ``ssd.backward_launches``."""
+    bwd = name in BWD_PASSES
+    if not bwd and name not in PASSES:
+        raise ValueError(f"ssd: no pass {name!r}; the passes are {PASSES} and {BWD_PASSES}")
+    if (ws.fwd if bwd else ws).x.device.type == "cuda":
+        if bwd:
+            _launch_bwd(ws, 1 << BWD_PASSES.index(name))
+        else:
+            _launch(ws, 1 << PASSES.index(name))
         return
     for field, value in plain_pass(ws, name).items():
         getattr(ws, field).copy_(value)
+
+
+class SsdScan(torch.autograd.Function):
+    """The scan whose forward and backward are the kernels on CUDA and
+    their plain versions on the CPU.  On CUDA it saves x, B, C and the
+    forward's cum, C B^T and prev scratch, so that the backward recomputes
+    none of passes 1-4; on the CPU the inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dA, B, C, q: int, initial_state):
+        ctx.set_materialize_grads(False)
+        ctx.q = q
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, dA, B, C, initial_state)
+            return ssd_ref(x, dA, B, C, q, initial_state)
+        ws = workspace(x, dA, B, C, q, initial_state)
+        if any(ctx.needs_input_grad):
+            _check_bwd_kernel(x, B, C)  # refuse before the forward, not in the backward
+        _launch(ws, _ALL)
+        count_launch(ssd)
+        ctx.save_for_backward(x, B, C, ws.cum, ws.cb, ws.prev)
+        return ws.y, ws.final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        q = ctx.q
+        saved = ctx.saved_tensors  # once: remat's checkpoint unpacks each saved tensor once
+        if saved[0].device.type == "cpu":
+            x, dA, B, C, init = saved
+            if dy is None:
+                dy = torch.zeros_like(x)
+            dx, d_dA, dB, dC, d_init = ssd_bwd_ref(x, dA, B, C, q, init, dy, dfinal)
+        else:
+            x, B, C, cum, cb, prev = saved
+            fwd = Workspace(x=x, dA=None, B=B, C=C, chunk=q, initial_state=None, cum=cum, cb=cb,
+                            states=None, prev=prev, y=None, final=None)
+            bw = bwd_workspace(fwd, dy, dfinal)
+            _launch_bwd(bw, _BWD_ALL)
+            count_launch(ssd, "backward_launches")
+            dx, d_dA, dB, dC, d_init = bw.dx, bw.d_dA, bw.dB, bw.dC, bw.d_init
+        return dx, d_dA, dB, dC, None, d_init if ctx.needs_input_grad[5] else None
 
 
 def ssd(
@@ -228,19 +423,13 @@ def ssd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD over chunks of ``min(chunk, S)`` positions, which must
     divide S (the JAX wrapper's rule); returns (y [B, S, H, P] in x's dtype,
-    final_state [B, H, P, N] fp32)."""
+    final_state [B, H, P, N] fp32), differentiable in x, dA, B, C and the
+    initial state."""
     q = _check(x, dA, B, C, chunk, initial_state)
-    if x.device.type == "cpu":
-        return ssd_ref(x, dA, B, C, q, initial_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd: no kernel for device {x.device}")
-    tensors = (x, dA, B, C) + ((initial_state,) if initial_state is not None else ())
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("ssd: the chunk scan has no backward kernel")
-    ws = workspace(x, dA, B, C, chunk, initial_state)
-    _launch(ws, _ALL)
-    count_launch(ssd)
-    return ws.y, ws.final
+    return SsdScan.apply(x, dA, B, C, q, initial_state)
 
 
 ssd.launches = 0
+ssd.backward_launches = 0

@@ -23,7 +23,7 @@ the final state) and ``ssd_output_ref`` (y).  Composed, they compute what
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -157,3 +157,199 @@ def ssd_output_ref(
     y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores, xf)
     y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Cf, prev, torch.exp(cumc))
     return (y_diag + y_off).reshape(b, s, h, p).to(x.dtype)
+
+
+# ------------------------------------------------------------ the backward
+# The JAX package differentiates ``ssd_chunked`` by autodiff; the port's
+# backward is a kernel of its own, and these are its plain versions, one for
+# each of its six passes (``BWD_PASSES`` in ops.py), in closed form.  Per
+# chunk and head, with M = C B^T, L[i, j] = exp(cum_i - cum_j) for i >= j,
+# S = M o L, e = exp(cum), w = exp(cum_last - cum), prev the state entering
+# the chunk and g the gradient of the state leaving it:
+#   dprev = (dy o e)^T C + exp(cum_last) g  (g of the chunk before; d_initial
+#           for the first chunk; g of the last chunk is dfinal),
+#   dx    = S^T dy + w o (B g^T),
+#   dM    = (dy x^T) o L,  dC = dM B + (dy o e) prev,  dB = dM^T C + (x o w) g,
+#   dcum  = rowsum(dS o S) - colsum(dS o S) + the e, w and chunk-decay terms,
+#   d_dA  = the reverse running sum of dcum within each chunk.
+def _per_head(t: torch.Tensor, h: int, nc: int, q: int) -> torch.Tensor:
+    """[B, S, G, N] -> [B, nC, Q, H, N] fp32, each group repeated to its heads."""
+    b, _, g, n = t.shape
+    return t.float().repeat_interleave(h // g, dim=2).reshape(b, nc, q, h, n)
+
+
+def _intra(x, dy, cb, cum):
+    """(S, dM, dS o S) of every chunk and head, each ``[B, nC, H, Q, Q]``
+    fp32 and 0 above the diagonal (a select: ``cb`` may hold anything
+    there)."""
+    b, s, h, p = x.shape
+    nc, q = cum.shape[2], cum.shape[3]
+    xf = x.float().reshape(b, nc, q, h, p)
+    dyf = dy.float().reshape(b, nc, q, h, p)
+    L = torch.exp(_tril_diff(cum.permute(0, 2, 1, 3)))  # [B, nC, H, Q, Q], 0 above
+    lower = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    S = torch.where(lower, cb.float().repeat_interleave(h // cb.shape[2], dim=2) * L, 0.0)
+    dS = torch.einsum("bcihp,bcjhp->bchij", dyf, xf)
+    return S, dS * L, torch.where(lower, dS * S, 0.0)
+
+
+def _chunks(t: torch.Tensor) -> torch.Tensor:
+    """[B, nC, Q, H, ...] -> [B, S, H, ...]."""
+    b, nc, q = t.shape[:3]
+    return t.reshape(b, nc * q, *t.shape[3:])
+
+
+def ssd_bwd_dprev_ref(dy: torch.Tensor, C: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """Backward pass 1: the output's part of each chunk's dprev, (dy o e)^T C,
+    ``[B, nC, H, P, N]`` fp32."""
+    b, s, h, p = dy.shape
+    nc, q = cum.shape[2], cum.shape[3]
+    e = torch.exp(cum).permute(0, 2, 3, 1)  # [B, nC, Q, H]
+    dyf = dy.float().reshape(b, nc, q, h, p)
+    return torch.einsum("bcihp,bcih,bcihn->bchpn", dyf, e, _per_head(C, h, nc, q))
+
+
+def ssd_bwd_carry_ref(
+    dprev: torch.Tensor,  # [B, nC, H, P, N], pass 1's
+    cum: torch.Tensor,  # [B, H, nC, Q]
+    dfinal: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward pass 2: the gradient of the state leaving each chunk,
+    ``[B, nC, H, P, N]``, and d_initial ``[B, H, P, N]``, walking the
+    chunks in reverse from ``dfinal`` (zeros when None)."""
+    b, nc, h, p, n = dprev.shape
+    total_decay = torch.exp(cum[..., -1])  # [B, H, nC]
+    g = (dfinal.float() if dfinal is not None
+         else torch.zeros((b, h, p, n), dtype=torch.float32, device=dprev.device))
+    dstate = [None] * nc
+    for c in reversed(range(nc)):
+        dstate[c] = g
+        g = dprev[:, c] + total_decay[:, :, c, None, None] * g
+    return torch.stack(dstate, dim=1), g
+
+
+def ssd_bwd_dx_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    dy: torch.Tensor,  # [B, S, H, P]
+    B: torch.Tensor,  # [B, S, G, N]
+    C: torch.Tensor,  # [B, S, G, N]
+    cb: torch.Tensor,  # [B, nC, G, Q, Q], read on and below the diagonal only
+    cum: torch.Tensor,  # [B, H, nC, Q]
+    prev: torch.Tensor,  # [B, nC, H, P, N]
+    dstate: torch.Tensor,  # [B, nC, H, P, N], pass 2's
+) -> Dict[str, torch.Tensor]:
+    """Backward pass 3, over the keys j of each chunk: dx ``[B, S, H, P]``,
+    each head's dB ``[B, S, H, N]``, and of dcum ``[B, H, nC, Q]`` the
+    column sums ``-colsum(dS o S)`` and the w term ``dw_j = w_j
+    sum_{p,n} g x_j B_j`` (taken from position j and added to the chunk's
+    last), with the chunk decay's ``exp(cum_last) <prev, g>`` ``[B, H,
+    nC]``, all fp32."""
+    b, s, h, p = x.shape
+    nc, q = cum.shape[2], cum.shape[3]
+    S, dM, T = _intra(x, dy, cb, cum)
+    xf = x.float().reshape(b, nc, q, h, p)
+    dyf = dy.float().reshape(b, nc, q, h, p)
+    Bf, Cf = _per_head(B, h, nc, q), _per_head(C, h, nc, q)
+    cumc = cum.permute(0, 2, 3, 1)  # [B, nC, Q, H]
+    w = torch.exp(cumc[:, :, -1:] - cumc)[..., None]  # [B, nC, Q, H, 1]
+    dx = (torch.einsum("bchij,bcihp->bcjhp", S, dyf)
+          + w * torch.einsum("bcjhn,bchpn->bcjhp", Bf, dstate))
+    dB_state = w * torch.einsum("bcjhp,bchpn->bcjhn", xf, dstate)
+    dB = torch.einsum("bchij,bcihn->bcjhn", dM, Cf) + dB_state
+    return {
+        "dx": _chunks(dx),
+        "dBh": _chunks(dB),
+        "dcum_col": -T.sum(dim=3).permute(0, 2, 1, 3),
+        "dw": (Bf * dB_state).sum(-1).permute(0, 3, 1, 2),
+        "ddecay": (torch.exp(cum[..., -1])
+                   * (prev * dstate).sum(dim=(-2, -1)).permute(0, 2, 1)),
+    }
+
+
+def ssd_bwd_dc_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    dy: torch.Tensor,  # [B, S, H, P]
+    B: torch.Tensor,  # [B, S, G, N]
+    C: torch.Tensor,  # [B, S, G, N]
+    cb: torch.Tensor,  # [B, nC, G, Q, Q], read on and below the diagonal only
+    cum: torch.Tensor,  # [B, H, nC, Q]
+    prev: torch.Tensor,  # [B, nC, H, P, N]
+) -> Dict[str, torch.Tensor]:
+    """Backward pass 4, over the rows i of each chunk: each head's dC ``[B,
+    S, H, N]`` and of dcum ``[B, H, nC, Q]`` the row sums ``rowsum(dS o
+    S)`` plus the e term ``sum_n C o (dy o e) prev``, fp32."""
+    b, s, h, p = x.shape
+    nc, q = cum.shape[2], cum.shape[3]
+    _, dM, T = _intra(x, dy, cb, cum)
+    dyf = dy.float().reshape(b, nc, q, h, p)
+    Bf, Cf = _per_head(B, h, nc, q), _per_head(C, h, nc, q)
+    e = torch.exp(cum).permute(0, 2, 3, 1)[..., None]  # [B, nC, Q, H, 1]
+    dC_state = e * torch.einsum("bcihp,bchpn->bcihn", dyf, prev)
+    dC = torch.einsum("bchij,bcjhn->bcihn", dM, Bf) + dC_state
+    e_term = (Cf * dC_state).sum(-1).permute(0, 3, 1, 2)  # [B, H, nC, Q]
+    return {"dCh": _chunks(dC), "dcum_row": T.sum(dim=4).permute(0, 2, 1, 3) + e_term}
+
+
+def ssd_bwd_dA_ref(
+    dcum_row: torch.Tensor,  # [B, H, nC, Q]
+    dcum_col: torch.Tensor,  # [B, H, nC, Q]
+    dw: torch.Tensor,  # [B, H, nC, Q]
+    ddecay: torch.Tensor,  # [B, H, nC]
+) -> torch.Tensor:
+    """Backward pass 5: dcum from its four sources, then d_dA ``[B, S, H]``
+    fp32, its reverse running sum within each chunk."""
+    b, h, nc, q = dcum_row.shape
+    dcum = dcum_row + dcum_col - dw
+    dcum[..., -1] += dw.sum(-1) + ddecay
+    d_dA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    return d_dA.permute(0, 2, 3, 1).reshape(b, nc * q, h)
+
+
+def ssd_bwd_fold_ref(dBh: torch.Tensor, dCh: torch.Tensor, groups: int):
+    """Backward pass 6: dB and dC ``[B, S, G, N]``, each the sum of its
+    group's heads in order."""
+    b, s, h, n = dBh.shape
+    return tuple(t.reshape(b, s, groups, h // groups, n).sum(3) for t in (dBh, dCh))
+
+
+def ssd_bwd_scratch_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    B: torch.Tensor,  # [B, S, G, N]
+    C: torch.Tensor,  # [B, S, G, N]
+    cum: torch.Tensor,  # [B, H, nC, Q]
+    cb: torch.Tensor,  # [B, nC, G, Q, Q], read on and below the diagonal only
+    prev: torch.Tensor,  # [B, nC, H, P, N]
+    dy: torch.Tensor,  # [B, S, H, P]
+    dfinal: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The six backward passes composed, from the forward's scratch (what
+    the backward kernel computes): (dx, d_dA, dB, dC, d_initial), fp32."""
+    dstate, d_init = ssd_bwd_carry_ref(ssd_bwd_dprev_ref(dy, C, cum), cum, dfinal)
+    sx = ssd_bwd_dx_ref(x, dy, B, C, cb, cum, prev, dstate)
+    sc = ssd_bwd_dc_ref(x, dy, B, C, cb, cum, prev)
+    d_dA = ssd_bwd_dA_ref(sc["dcum_row"], sx["dcum_col"], sx["dw"], sx["ddecay"])
+    dB, dC = ssd_bwd_fold_ref(sx["dBh"], sc["dCh"], B.shape[2])
+    return sx["dx"], d_dA, dB, dC, d_init
+
+
+def ssd_bwd_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    dA: torch.Tensor,  # [B, S, H]
+    B: torch.Tensor,  # [B, S, G, N]
+    C: torch.Tensor,  # [B, S, G, N]
+    chunk: int,
+    initial_state: Optional[torch.Tensor],  # [B, H, P, N]
+    dy: torch.Tensor,  # [B, S, H, P]
+    dfinal: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The vector-Jacobian product of :func:`ssd_ref` with chunks of exactly
+    ``chunk`` positions: (dx, d_dA, dB, dC, d_initial), in the dtypes of x,
+    dA, B, C and fp32; dB and dC in the group layout, summed over each
+    group's heads.  The forward's passes 1-4, then the six backward passes."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"ssd: seq {x.shape[1]} is not a multiple of chunk {chunk}")
+    cum = ssd_cum_ref(dA, chunk)
+    prev, _ = ssd_carry_ref(ssd_chunk_states_ref(x, B, cum), cum, initial_state)
+    dx, d_dA, dB, dC, d_init = ssd_bwd_scratch_ref(
+        x, B, C, cum, ssd_cb_ref(B, C, chunk), prev, dy, dfinal)
+    return dx.to(x.dtype), d_dA.to(dA.dtype), dB.to(B.dtype), dC.to(C.dtype), d_init

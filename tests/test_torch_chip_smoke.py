@@ -108,7 +108,13 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
                         ("G 2", 1, 32, 4, 16, 8, 2, "float32", True),
                         ("bf16 inputs", 1, 32, 4, 16, 8, 1, "bfloat16", False),
                         ("initial state, 128 chunks", 1, 64, 4, 16, 16, 1, "float32", True)],
-        SSD_CHUNK=16, SSM_MODELS=("tiny-mamba", "tiny-zamba"), SSM_PROMPT_LEN=25,
+        SSD_CHUNK=16,
+        SSD_BWD_CASES=[("mamba2-370m train", 2, 32, 4, 16, 16, 1, 16, False, False, False)],
+        SSD_BWD_EDGE_CASES=[("initial state, dfinal", 1, 32, 4, 16, 8, 2, 16, True, True, False),
+                            ("unaligned rows, chunk 10", 1, 30, 2, 16, 16, 1, 10, True, True,
+                             True)],
+        SSM_TRAIN_BATCH=2, SSM_TRAIN_SEQ=32, SSM_REMAT_LAYERS=1,
+        SSM_MODELS=("tiny-mamba", "tiny-zamba"), SSM_PROMPT_LEN=25,
         SSM_NEW_TOKENS=8, SSM_MAX_LEN=32, SSM_BATCH=2, SSM_CHECK_POSITIONS=(0, 15, 16, 31),
         PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,
         PILOT_TRAIN_LAYERS=None, PILOT_SERVE_PROMPT_LEN=6, PILOT_SERVE_NEW_TOKENS=3,
@@ -154,6 +160,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     monkeypatch.setattr(fa_ops, "flash_attention_bwd_ref", counting(
         fa_ops.flash_attention_bwd_ref, fa_ops.flash_attention, "backward_launches"))
     monkeypatch.setattr(ssd_ops, "ssd_ref", counting(ssd_ops.ssd_ref, ssd_ops.ssd))
+    monkeypatch.setattr(ssd_ops, "ssd_bwd_ref", counting(
+        ssd_ops.ssd_bwd_ref, ssd_ops.ssd, "backward_launches"))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -164,7 +172,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
     kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
     assert sorted(kernels) == ["decode_attention", "flash_attention", "flash_attention_bwd",
-                               "rmsnorm", "rmsnorm_bwd", "rmsnorm_residual", "ssd_scan"]
+                               "rmsnorm", "rmsnorm_bwd", "rmsnorm_residual", "ssd_scan",
+                               "ssd_scan_bwd"]
     steps = 10 + 4 - 1
     assert kernels["decode_attention"]["launches"] == 8 * steps
     assert kernels["rmsnorm"]["launches"] == 17 * steps
@@ -189,7 +198,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     pilot = {name: k["launches_by_path"]["pilot"] for name, k in kernels.items()}
     assert pilot == {"flash_attention": 4 * 6, "flash_attention_bwd": 4 * 3,
                      "rmsnorm": 4 * 13 + 2 * 17 * 8, "rmsnorm_bwd": 4 * 7,
-                     "decode_attention": 2 * 8 * 8, "rmsnorm_residual": 0, "ssd_scan": 0}
+                     "decode_attention": 2 * 8 * 8, "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     # B2's cases: one device kernel a call, and the main path's split plans
     dec = kernels["decode_attention"]["cases"]
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
@@ -203,13 +212,13 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert n_fwd in (2, 3)
     assert moe == {"decode_attention": 2 * 2 * 13, "rmsnorm": 2 * 5 * 13 + 5 * n_fwd,
                    "flash_attention": 2 * n_fwd, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                   "rmsnorm_residual": 0, "ssd_scan": 0}
+                   "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     # moe-train: 2 evals (2 attention, 5 norms each) and 4 remat steps (2 + 2
     # attention forwards, 2 backwards; 5 + 4 norm forwards, 5 backwards)
     moe_train = {name: k["launches_by_path"]["moe-train"] for name, k in kernels.items()}
     assert moe_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
                          "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
-                         "rmsnorm_residual": 0, "ssd_scan": 0}
+                         "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     # whisper (2 encoder + 2 decoder layers): the cross-cache prefill's encoder
     # (2 attentions, 5 norms), 4 + 6 - 1 engine steps and the one after them
     # (two decode attentions and 7 norms each), the forward (2 + 2 x 2
@@ -219,7 +228,20 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     whisper = {name: k["launches_by_path"]["whisper"] for name, k in kernels.items()}
     assert whisper == {"decode_attention": 10 * 4, "flash_attention": 2 + 6 + 2 * 6 + 4 * 12,
                        "flash_attention_bwd": 4 * 6, "rmsnorm": 5 + 10 * 7 + 12 + 2 * 12 + 4 * 22,
-                       "rmsnorm_bwd": 4 * 12, "rmsnorm_residual": 0, "ssd_scan": 0}
+                       "rmsnorm_bwd": 4 * 12, "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    # ssm-train: tiny-mamba (3 mamba layers, each its own stacked group) and
+    # tiny-zamba (a group of 5 mamba + the shared attention block, a tail of 2
+    # mamba), 2 evals and 4 remat steps each; the stacked groups' mamba layers
+    # run B4 again in the backward pass, the tail's do not
+    ssm_train = {name: k["launches_by_path"]["ssm-train"] for name, k in kernels.items()}
+    assert ssm_train == {
+        "ssd_scan": (2 * 3 + 4 * (3 + 3)) + (2 * 7 + 4 * (7 + 5)),
+        "ssd_scan_bwd": 4 * 3 + 4 * 7,
+        "flash_attention": 2 * 1 + 4 * 2, "flash_attention_bwd": 4 * 1,
+        "rmsnorm": (2 * 7 + 4 * (7 + 6)) + (2 * 17 + 4 * (17 + 12)),
+        "rmsnorm_bwd": 4 * 7 + 4 * 17, "decode_attention": 0, "rmsnorm_residual": 0}
+    assert kernels["ssd_scan_bwd"]["launches"] == ssm_train["ssd_scan_bwd"]
+    assert kernels["ssd_scan_bwd"]["library_ms"] is None
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",
             "launches_by_path"}

@@ -545,20 +545,128 @@ def test_ssd_kernel_unaligned_rows_match_plain(cuda, dtype):
 
 
 def test_ssd_kernel_refuses_gradients_and_missing_instances(cuda):
+    """A gradient of fp32 inputs runs the backward kernel (once, counted);
+    what the kernels have no instance for raises: a gradient of bf16
+    inputs (the backward is built for fp32 only, refused before the
+    forward runs), d_state 32, a bf16 dA."""
     from repro_torch.kernels.ssd_scan import ops
 
     x = torch.zeros(1, 64, 2, 64, device=cuda, requires_grad=True)
     dA = torch.zeros(1, 64, 2, device=cuda)
     bc = torch.zeros(1, 64, 1, 128, device=cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.ssd(x, dA, bc, bc, 64)
+    before = (ops.ssd.launches, ops.ssd.backward_launches)
+    y, _ = ops.ssd(x, dA, bc, bc, 64)
+    (dx,) = torch.autograd.grad(y.sum(), (x,))
+    torch.cuda.synchronize()
+    assert (ops.ssd.launches, ops.ssd.backward_launches) == (before[0] + 1, before[1] + 1)
+    # B = C = 0: y and dx are 0
+    assert bool((y == 0).all()) and bool((dx == 0).all())
     with torch.no_grad():
-        y, _ = ops.ssd(x, dA, bc, bc, 64)  # no gradient asked for: the kernel runs
+        y, _ = ops.ssd(x, dA, bc, bc, 64)  # no gradient asked for: the forward runs
     assert bool((y == 0).all())
+    launches = ops.ssd.launches
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd(x.detach().bfloat16().requires_grad_(), dA, bc.bfloat16(), bc.bfloat16(), 64)
+    assert ops.ssd.launches == launches
     with pytest.raises(NotImplementedError):
         ops.ssd(x.detach(), dA, bc[..., :32], bc[..., :32], 64)  # d_state 32
     with pytest.raises(TypeError):
         ops.ssd(x.detach(), dA.bfloat16(), bc, bc, 64)
+
+
+# SSD backward: (B, S, H, P, N, G, initial state, dfinal) -- the card tests'
+# smoke shapes at both d_states, G 2, and an initial state with dfinal
+SSD_BWD_CASES = [
+    (2, 512, 8, 64, 128, 1, False, False),
+    (2, 512, 8, 64, 64, 1, False, False),
+    (2, 512, 8, 64, 64, 2, True, True),
+    (1, 1024, 4, 64, 128, 1, True, True),
+]
+
+
+def _ssd_grads(x, dA, B_, C_, chunk, state, dy, dfinal):
+    """(dx, d_dA, dB, dC, d_initial) of ops.ssd by autograd; B and C are
+    views of one tensor, as the model has them, so dB and dC come back
+    through their base."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    leaves = [t.detach().requires_grad_() for t in (x, dA, B_, C_)]
+    if state is not None:
+        leaves.append(state.detach().requires_grad_())
+    y, final = ops.ssd(*leaves[:4], chunk, leaves[4] if state is not None else None)
+    outs, grads_out = [y], [dy]
+    if dfinal is not None:
+        outs.append(final)
+        grads_out.append(dfinal)
+    grads = torch.autograd.grad(outs, leaves, grads_out)
+    return tuple(grads) + ((None,) if state is None else ())
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,init,dfin", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain(cuda, b, s, h, p, n, g, init, dfin):
+    """B4's backward (through ops.ssd's autograd Function) against
+    ssd_bwd_ref, fp32: 1e-4 relative plus 1e-5 x the tensor's largest
+    value (the gradients sum a chunk of terms in another order); one
+    backward launch a call; two calls equal bit for bit."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+
+    x, dA, B_, C_, state = _ssd_inputs(cuda, b, s, h, p, n, g, torch.float32, init)
+    gen = torch.Generator(device=cuda).manual_seed(s + n)
+    dy = torch.randn(b, s, h, p, generator=gen, device=cuda)
+    dfinal = torch.randn(b, h, p, n, generator=gen, device=cuda) if dfin else None
+    before = ops.ssd.backward_launches
+    got = _ssd_grads(x, dA, B_, C_, 256, state, dy, dfinal)
+    again = _ssd_grads(x, dA, B_, C_, 256, state, dy, dfinal)
+    want = ssd_bwd_ref(x, dA, B_, C_, 256, state, dy, dfinal)
+    torch.cuda.synchronize()
+    assert ops.ssd.backward_launches == before + 2
+    for name, gv, av, wv in zip(("dx", "d_dA", "dB", "dC", "d_initial"), got, again, want):
+        if name == "d_initial" and state is None:
+            assert gv is None
+            continue
+        assert gv.dtype == torch.float32 and gv.shape == wv.shape, name
+        assert torch.equal(gv, av), name
+        _close_grad(gv, wv, torch.float32)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,init,dfin", SSD_BWD_CASES)
+def test_ssd_backward_kernel_passes_match_plain(cuda, b, s, h, p, n, g, init, dfin):
+    """Each of the backward's six passes against its plain version computed
+    from the kernel's own scratch as the pass found it, on the forward
+    kernel's scratch, with the gradients' tolerance."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    x, dA, B_, C_, state = _ssd_inputs(cuda, b, s, h, p, n, g, torch.float32, init)
+    gen = torch.Generator(device=cuda).manual_seed(s + n)
+    dy = torch.randn(b, s, h, p, generator=gen, device=cuda)
+    dfinal = torch.randn(b, h, p, n, generator=gen, device=cuda) if dfin else None
+    ws = ops.workspace(x, dA, B_, C_, 256, state)
+    for name in ops.PASSES:
+        ops.run_pass(ws, name)
+    bw = ops.bwd_workspace(ws, dy, dfinal)
+    for name in ops.BWD_PASSES:
+        ops.run_pass(bw, name)
+        for field, ref in ops.plain_pass(bw, name).items():
+            _close_grad(getattr(bw, field), ref, torch.float32)
+
+
+def test_ssd_backward_kernel_unaligned_rows_match_plain(cuda):
+    """x and dy as views whose rows lie 65 elements apart, a ragged chunk of
+    100 (two 64-row tiles, the second partial), an initial state and
+    dfinal."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+
+    x, dA, B_, C_, state = _ssd_inputs(cuda, 2, 300, 4, 64, 128, 1, torch.float32, True)
+    x = torch.cat([x, x[..., :1]], dim=3)[..., :64]
+    gen = torch.Generator(device=cuda).manual_seed(300)
+    dy = torch.randn(2, 300, 4, 65, generator=gen, device=cuda)[..., :64]
+    dfinal = torch.randn(2, 4, 64, 128, generator=gen, device=cuda)
+    got = _ssd_grads(x, dA, B_, C_, 100, state, dy, dfinal)
+    want = ssd_bwd_ref(x, dA, B_, C_, 100, state, dy, dfinal)
+    torch.cuda.synchronize()
+    for gv, wv in zip(got, want):
+        _close_grad(gv, wv, torch.float32)
 
 
 def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
@@ -600,6 +708,48 @@ def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
                 lg, cache = api.decode_step(params, cache, tokens[:, i : i + 1], i)
                 err = (lg[:, 0].float() - full[:, i]).abs().max().item()
                 assert err < 1e-4 * max(1.0, full[:, i].abs().max().item()), (arch, i, err)
+
+
+def test_ssm_train_step_on_card_launches_the_schedule(cuda, monkeypatch):
+    """A mamba2 and a zamba2 smoke model (head_dim 64, d_state 64, fp32), one
+    eval and one remat train step on the card with every plain version made
+    to raise: the launches are exactly what chip_smoke's
+    ``train_launch_schedule`` implies (B4 forward, again for the mamba
+    layers of the stacked groups, and its backward once per mamba layer;
+    B1 both ways in zamba2's shared block; B3a both ways), and step 0's
+    loss (lr 0) is the eval loss."""
+    import dataclasses
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.training import make_eval_step, make_train_step
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    _refuse_plain_versions(monkeypatch)
+    for arch, n_layers in (("mamba2-370m", 2), ("zamba2-1.2b", 8)):
+        cfg = dataclasses.replace(
+            get_config(arch + "-smoke"), n_layers=n_layers, d_model=128, head_dim=64,
+            ssm=SSMConfig(d_state=64, head_dim=64, expand=2, n_groups=1, chunk=32))
+        api = build_model(cfg, device=cuda)
+        params = api.init(seed=0)
+        opt = init_adamw(params)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 97), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(0))
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        cs.reset_counts()
+        ev = make_eval_step(api)(params, batch)
+        assert cs.read_counts() == cs.path_launches(cfg, "forward")
+        cs.reset_counts()
+        params, opt, m = make_train_step(api, warmup_steps=1)(params, opt, batch)
+        torch.cuda.synchronize()
+        assert cs.read_counts() == cs.train_launch_schedule(cfg), arch
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+        assert abs(m["loss"].item() - ev["loss"].item()) < 1e-4 * max(1.0, ev["loss"].item())
 
 
 @pytest.mark.parametrize("kv", ["bfloat16", "int8"])
@@ -773,7 +923,7 @@ def _refuse_plain_versions(monkeypatch):
     for mod, name in ((fa_ops, "flash_attention_ref"), (fa_ops, "flash_attention_bwd_ref"),
                       (dec_ops, "decode_attention_ref"), (norm_ops, "rmsnorm_ref"),
                       (norm_ops, "rmsnorm_bwd_ref"), (norm_ops, "rmsnorm_residual_ref"),
-                      (ssd_ops, "ssd_ref")):
+                      (ssd_ops, "ssd_ref"), (ssd_ops, "ssd_bwd_ref")):
         monkeypatch.setattr(mod, name, boom)
 
 
