@@ -23,7 +23,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 and unaligned rows), which must also give the same bits
                 twice.  B2
                 logs its split plan (blocks a cluster, slots a block) and
-                torch.profiler must see one call run exactly one kernel;
+                torch.profiler must see one call run exactly one kernel.  B1's
+                phase 12 cases run the forward only, as their path does (and
+                on the card its backward must refuse G 48);
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -96,7 +98,18 @@ Phases, each of which must pass (any failure exits non-zero):
                 equal those without remat bit for bit, and in fp32 every
                 gradient leaf must be within SSM_PLAIN_GRAD_TOL of its max |g|
                 of the same loss through the plain versions on the card;
- 12. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+ 12. dense-serve -- the dense models at every published width, bf16, random
+                weights from --seed, every plain version refused, the launches
+                exact: h2o-danube-1.8b (24 layers, 32/8 heads of 80: B2 at D
+                80) written to checkpoint DU files and served from them, 4
+                prompts of 520 tokens plus 24 new, max_len 1024 (its 4096-slot
+                window is longer, so the ring does not wrap here; phase 3 holds
+                a wrapped one); granite-34b (48/1 heads of 128: MQA, B1 and B2
+                at G 48) cut to DENSE_GRANITE_LAYERS of its 88 layers, its
+                weights drawn on the card, 4 prompts of 256 plus 24 new.
+                Decode logits, recorded as the engine runs and at its next
+                step, are held against the teacher-forced forward (B1);
+ 13. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
 served model; granite-moe's with its MoE layers' share), of one train step
@@ -161,10 +174,12 @@ PILOT_STEPS, PILOT_CHUNK_STEPS = 4, 2
 # next CU may stage it into, and the seal's pass over the joined file stream.
 # At 24 layers a checkpoint is 25.6 GB (bf16 params, fp32 m, v and masters),
 # seven of which do not fit the ~103 GB of one H100 host; 8 layers (10.1 GB)
-# do.  The cut is of depth only: every width is h2o-danube-1.8b's.  The
+# do, and 4 (about 6.2 GB) keep the phase, whose time is the host's codec
+# over those bytes, near two minutes.  The cut is of depth only: every width
+# is h2o-danube-1.8b's.  The
 # Pilot-Data are mem://: on a sharedfs:// one each 64 KiB chunk of a DU is a
 # file, and a 12 GB checkpoint took 210 s to write and 95 s to read back.
-PILOT_TRAIN_LAYERS = 8
+PILOT_TRAIN_LAYERS = 4
 PILOT_HOST_COPIES = 7
 PILOT_SERVE_PROMPT_LEN, PILOT_SERVE_NEW_TOKENS, PILOT_SERVE_MAX_LEN = 16, 8, 64
 PILOT_TIMEOUT_S = 900.0
@@ -204,16 +219,24 @@ FLASH_CASES = [
     ("whisper encoder", 8, 1500, 20, 20, 64, False, None),
     ("whisper decoder self", 8, 448, 20, 20, 64, True, None),
     ("whisper cross", 8, (448, 1500), 20, 20, 64, False, None),
+    # phase 12's teacher-forced forwards
+    ("h2o-danube serve forward", 4, 544, 32, 8, 80, True, 4096),
+    ("granite-34b forward", 4, 280, 48, 1, 128, True, None),
 ]
+# cases whose path runs no backward: they are checked and timed forward only
+# (so is every case at a group that the backward has no instance for)
+FLASH_FORWARD_ONLY = ("h2o-danube serve forward", "granite-34b forward")
 FLASH_FP32_CASES = [
     ("fp32 ragged", 2, 300, 8, 2, 80, True, 128),
     ("fp32 non-causal", 1, 200, 4, 1, 256, False, None),
+    ("fp32 G 48 ragged", 1, 100, 48, 1, 128, True, 64),
 ]
 # RMSNorm forward: (rows, D).  gemma3-1b's width (4 rows: a decode step at
 # batch 4), then phase 6's: mamba2-370m's d_model 1024 and gate norm 2048,
 # zamba2-1.2b's d_model 2048 and gate norm 4096, at a decode step (4 rows), a
-# forward of 4 x 511 tokens (2044) and the mamba2 prefill (32768); last,
-# h2o-danube-1.8b's training batch (2 x 8192 rows of 2560).  Triton builds
+# forward of 4 x 511 tokens (2044) and the mamba2 prefill (32768); then
+# h2o-danube-1.8b's training batch (2 x 8192 rows of 2560), and the later
+# phases' widths at their own rows.  Triton builds
 # one program for each width.  The residual variant runs on no path: it is
 # held at gemma3-1b's width only
 RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
@@ -225,7 +248,10 @@ RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
                  # whisper (phase 10): a decode step, the serve forward's decoder
                  # (4 x 128) and encoder (4 x 1500) and the training batch's
                  # decoder (8 x 448) and encoder (8 x 1500)
-                 (4, 1280), (512, 1280), (6000, 1280), (3584, 1280), (12000, 1280)]
+                 (4, 1280), (512, 1280), (6000, 1280), (3584, 1280), (12000, 1280),
+                 # phase 12: a decode step and the teacher-forced forward of
+                 # h2o-danube-1.8b (4 x 544) and granite-34b (4 x 280)
+                 (4, 2560), (2176, 2560), (4, 6144), (1120, 6144)]
 RMSNORM_RESIDUAL_CASES = [(4, 1152), (8, 1152), (4096, 1152)]
 # RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
 # step's, 2176 x 1152 gemma3-1b's forward; then phase 9's and phase 10's
@@ -247,6 +273,13 @@ DECODE_CASES = [
     # the cross cache, whose query and slots are all at position 0 (None)
     ("whisper self", 4, 448, 20, 20, 64, None, 127),
     ("whisper cross", 4, 1500, 20, 20, 64, None, None),
+    # phase 12: h2o-danube-1.8b (D 80) at its last decode step over the
+    # 1024-slot cache, and its 4096-slot window ring wrapped; granite-34b
+    # (48/1 heads: G 48) at its last decode step
+    ("h2o-danube serve", 4, 1024, 32, 8, 80, 4096, 543),
+    ("h2o-danube ring wrapped", 4, 4096, 32, 8, 80, 4096, 4700),
+    ("granite-34b", 4, 1024, 48, 1, 128, None, 279),
+    ("granite-34b", 8, 1024, 48, 1, 128, None, 279),
 ]
 # SSD chunk scan: (label, B, S, H, P, N, G, dtype, initial state); the timed
 # cases are the mamba2 prefill and the phase 6 forwards, the edge cases are
@@ -279,6 +312,22 @@ SSD_BWD_EDGE_CASES = [
     ("G 2", 2, 512, 8, 64, 64, 2, 256, False, True, False),
     ("unaligned rows, chunk 100", 2, 300, 4, 64, 128, 1, 100, True, True, True),
 ]
+
+# phase 12: dense models served at every width, batch DENSE_BATCH, max_len
+# DENSE_MAX_LEN: (model, layers (None: every layer), weights through
+# checkpoint files (else drawn on the card), prompt length, new tokens, the
+# positions whose decode logits are held against the forward (the last one
+# is the engine's next step after generate)).  granite-34b is cut to
+# DENSE_GRANITE_LAYERS of its 88 layers: at full depth its 47.25 B params
+# (SwiGLU) are 94.5 GB of bf16, beyond the card's 80 GB, and drawing a
+# stacked [L, 6144, 24576] MLP leaf takes two fp32 temporaries of its size
+# (2 x 14.5 GB at 24 layers).  The cut is of depth only
+DENSE_GRANITE_LAYERS = 24
+DENSE_MODELS = [
+    ("h2o-danube-1.8b", None, True, 520, 24, (0, 511, 519, 543)),
+    ("granite-34b", DENSE_GRANITE_LAYERS, False, 256, 24, (0, 127, 255, 279)),
+]
+DENSE_BATCH, DENSE_MAX_LEN = 4, 1024
 
 # phase 11: SSM_MODELS trained at every width and depth on train_4k's
 # sequence length (repro/configs/base.py), cut from its 256 sequences to 4
@@ -573,13 +622,16 @@ def decode_cases(torch, timer, gen):
                        + sk * 4 + b * 4)  # slot positions (one row, broadcast), pos
             flops = 4 * n_valid * hq * d
             bound, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+            # the kernel multiplies on the CUDA cores in fp32: its own ceiling
+            fp32_ms = flops / FP32_FLOPS * 1e3
             cases.append(dict(case=label, B=b, Sk=sk, Hq=hq, Hkv=hkv, D=d, window=window,
                               pos=pos, dtype="bfloat16", plan=plan, device_kernels=names,
                               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                               bound_by=by, max_abs_err=err))
             log(f"kernels: {name} bf16 window={window} pos={pos}: "
-                f"{ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound {bound:.4f} by {by}), "
-                f"max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
+                f"{ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound {bound:.4f} by {by}; "
+                f"bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f}, ops at the fp32 CUDA-core "
+                f"rate {fp32_ms:.4f}), max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
     return cases
 
 
@@ -666,12 +718,24 @@ def flash_cases(torch, timer, gen):
         q, k, v, dout = rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), rnd(b, sq, hq, d)
         name = (f"flash_attention {label} [{b},{sq if sq == sk else f'{sq}/{sk}'},{hq}/{hkv},{d}] "
                 f"causal={causal} window={window}")
+        no_bwd_group = hq // hkv not in ops.BWD_GROUPS
+        fwd_only = no_bwd_group or label in FLASH_FORWARD_ONLY
         out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
-        grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
         f32 = [t.float() for t in (q, k, v, out, dout)]  # the same values in fp32
         kw = dict(causal=causal, window=window)
         ref, ref_lse = flash_attention_ref(*f32[:3], **kw)
-        ref_grads = flash_attention_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw)
+        if fwd_only:
+            grads = ref_grads = None
+            if no_bwd_group and DEVICE == "cuda":  # on the card the backward refuses it
+                try:
+                    ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+                except NotImplementedError:
+                    pass
+                else:
+                    raise AssertionError(f"{name}: the backward took G {hq // hkv}")
+        else:
+            grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+            ref_grads = flash_attention_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw)
         sync(torch)
         lerr = check_close(name + " lse", lse, ref_lse, 1e-4, 1e-5)
         if dtype != torch.bfloat16:
@@ -679,11 +743,12 @@ def flash_cases(torch, timer, gen):
             # gradients sum over up to S keys (dq) or S x G query rows (dk, dv)
             # in another order than the plain version: absolute term scaled by
             # the tensor's largest value
-            gerr = max(check_close(f"{name} d{n}", g, r, 1e-4,
-                                   1e-5 * max(1.0, r.float().abs().max().item()))
-                       for n, g, r in zip("qkv", grads, ref_grads))
+            gerr = "none (forward only)" if fwd_only else "%.2e" % max(
+                check_close(f"{name} d{n}", g, r, 1e-4,
+                            1e-5 * max(1.0, r.float().abs().max().item()))
+                for n, g, r in zip("qkv", grads, ref_grads))
             del ref, ref_lse, ref_grads, grads, f32
-            log(f"kernels: {name} fp32 max|err| out {err:.2e}, grads {gerr:.2e} (rtol 1e-4)")
+            log(f"kernels: {name} fp32 max|err| out {err:.2e}, grads {gerr} (rtol 1e-4)")
             continue
         # bf16 runs on the tensor cores, which round P (and dS) to bf16: held
         # against the fp32 plain version, with the error of the fp32 plain
@@ -694,12 +759,14 @@ def flash_cases(torch, timer, gen):
         err = max(err, lerr)
         ratios = [f"out {row:.3f}/{mean:.3f}"]
         gerr = 0.0
-        grads_p = flash_attention_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw_p)
-        for n, g, r, rp in zip("qkv", grads, ref_grads, grads_p):
-            e, row, mean = check_rounded(f"{name} d{n}", g, r, rp)
-            gerr = max(gerr, e)
-            ratios.append(f"d{n} {row:.3f}/{mean:.3f}")
-        del f32, ref, ref_lse, ref_grads, grads_p, grads
+        if not fwd_only:
+            grads_p = flash_attention_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw_p)
+            for n, g, r, rp in zip("qkv", grads, ref_grads, grads_p):
+                e, row, mean = check_rounded(f"{name} d{n}", g, r, rp)
+                gerr = max(gerr, e)
+                ratios.append(f"d{n} {row:.3f}/{mean:.3f}")
+            del grads_p
+        del f32, ref, ref_lse, ref_grads, grads
         log(f"kernels: {name}: gate row/mean ratios (pass <= 1) {', '.join(ratios)}")
         pairs = b * hq * kept_pairs(sq, sk, causal, window)
         io = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * 2  # q, k, v in; out
@@ -725,6 +792,12 @@ def flash_cases(torch, timer, gen):
             f"version's error, per row and in the mean)")
         log(f"kernels: {name}: {4 * pairs * d / ms / 1e9:.1f} TFLOP/s forward "
             f"(4 x pairs x D / ms; sdpa {4 * pairs * d / lib / 1e9:.1f})")
+        if fwd_only:
+            log(f"kernels: {name}: forward only (" + (
+                f"the backward has no G {hq // hkv})" if no_bwd_group else "no path runs its backward)"))
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+            continue
 
         bms = timer(lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window))
         bplain = timer(lambda: flash_attention_bwd_ref(
@@ -2550,6 +2623,141 @@ def phase_whisper(torch, seed, smi, profile: bool = False):
     return launches, out
 
 
+# ------------------------------------------------------------ phase 12
+def serve_dense(torch, seed, smi, model, layers, from_files, prompt_len, new_tokens, check,
+                profile):
+    """One dense model served by DecodeEngine at every width, every plain
+    version refused: the engine's decode launches exact, its logits
+    (recorded as it runs, then at its next step) held against the
+    teacher-forced forward.  Returns (launches, summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint_files, flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.transformer import SWA_KINDS
+    from repro_torch.serving import DecodeEngine
+
+    cfg = get_config(model)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    api = build_model(cfg, device=DEVICE)
+    recorded = {}
+
+    def recording_step(params, cache, tokens, pos_index):
+        """The model's decode step, keeping the logits at the check positions."""
+        logits, cache = api.decode_step(params, cache, tokens, pos_index)
+        if pos_index in check:
+            recorded[pos_index] = logits[:, 0].float()
+        return logits, cache
+
+    rec_api = dataclasses.replace(api, decode_step=recording_step)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if from_files:
+        files = checkpoint_files(0, f"{model}-chip-smoke", api.init(seed=seed))
+        n_bytes = sum(len(b) for b in files.values())
+        engine = DecodeEngine.from_files(rec_api, files, batch=DENSE_BATCH, max_len=DENSE_MAX_LEN)
+        del files
+        source = f"through {n_bytes / 2**30:.2f} GiB of checkpoint files"
+    else:
+        n_bytes = None
+        engine = DecodeEngine(rec_api, api.init(seed=seed), batch=DENSE_BATCH,
+                              max_len=DENSE_MAX_LEN)
+        source = "drawn on the card (api.init)"
+    params = engine.params
+    leaves = [t for _, t in flatten_tree(params)]
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    g = cfg.n_heads // cfg.n_kv_heads
+    slots = engine.cache["groups"]["pos0"]["k"].shape[-3]
+    wraps = "wrap" if prompt_len + new_tokens > slots else "do not wrap"
+    ring = (f"window {cfg.sliding_window}, max_len {DENSE_MAX_LEN}: {slots}-slot rings that {wraps}"
+            if any(k in SWA_KINDS for k in cfg.layer_kinds()) else f"{slots}-slot caches")
+    log(f"dense-serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim_} (GQA group {g}), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params (param_count {cfg.param_count() / 1e9:.3f}"
+        f" B), {weight_bytes / 1e9:.2f} GB) {source} in {load_s:.1f} s; {ring}")
+    plan = decode_plan(torch, dec_ops, DENSE_BATCH, cfg.n_kv_heads, slots, cfg.head_dim_, g)
+    log(f"dense-serve: B2's split plan for the {slots}-slot cache at batch {DENSE_BATCH}: {plan}")
+
+    prompts = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, cfg.vocab_size, (DENSE_BATCH, prompt_len)))
+    steps = prompt_len + new_tokens - 1
+    per_step, per_forward = path_launches(cfg, "step"), path_launches(cfg, "forward")
+    before_phase = read_counts()
+    with plain_versions_forbidden(), torch.no_grad():
+        before = read_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        new = engine.generate(prompts, new_tokens)
+        sync(torch)
+        elapsed = time.perf_counter() - t0
+        check_launches(before, {k: v * steps for k, v in per_step.items()},
+                       f"dense-serve {model} decode")
+        if new.shape != (DENSE_BATCH, new_tokens) or not bool(
+                ((new >= 0) & (new < cfg.vocab_size)).all()):
+            raise AssertionError(f"dense-serve {model}: bad generated tokens {tuple(new.shape)}")
+        # the engine's next step, at the position after the last one it fed
+        recording_step(params, engine.cache, new[:, -1:], steps)
+        seq = torch.cat([prompts.to(new.device), new], dim=1)  # [B, steps + 1]
+        before = read_counts()
+        hidden = api.forward(params, seq, return_hidden=True)
+        check_launches(before, per_forward, f"dense-serve {model} forward")
+        ref = unembed(hidden[:, list(check)], params["embed"], cfg).float()
+        del hidden
+    sync(torch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: v - before_phase[k] for k, v in read_counts().items()}
+    expected = {k: (steps + 1) * per_step[k] + per_forward[k] for k in per_step}
+    if launches != expected:
+        raise AssertionError(f"dense-serve {model}: launches {launches} != {expected}")
+    dec = torch.stack([recorded[p] for p in check], dim=1)
+    if dec.shape != ref.shape or not bool(dec.isfinite().all()):
+        raise AssertionError(f"dense-serve {model}: decode logits {tuple(dec.shape)} not finite")
+    scale = max(1.0, ref.abs().max().item())
+    err = (dec - ref).abs()
+    per_pos = {p: err[:, j].max().item() / scale for j, p in enumerate(check)}
+    mean = err.mean().item() / scale
+    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    out = dict(layers=cfg.n_layers, params=n_params, weight_bytes=weight_bytes,
+               checkpoint_bytes=n_bytes, load_s=load_s, b2_plan=plan, steps=steps,
+               ms_per_step=elapsed / steps * 1e3, tokens_per_s=DENSE_BATCH * steps / elapsed,
+               weights_bound_ms=bound, peak_gib=peak, logit_err=per_pos, logit_mean_err=mean)
+    log(f"dense-serve: {model}: {steps} decode steps (prompt token by token, then greedy) at "
+        f"batch {DENSE_BATCH}: {elapsed:.3f} s, {out['ms_per_step']:.3f} ms/step (all weights "
+        f"once: {bound:.3f} ms), {out['tokens_per_s']:.1f} tokens/s, peak device memory "
+        f"{peak:.2f} GiB on {smi}")
+    log(f"dense-serve: {model}: launches {launches} = {steps + 1} decode steps x {per_step} + "
+        f"the forward's {per_forward}")
+    log(f"dense-serve: {model}: decode vs forward logits at positions {check}: max |err| / "
+        f"{scale:.3f} = {per_pos} (tol {LOGIT_TOL}), mean {mean:.2e} (tol {LOGIT_MEAN_TOL})")
+    if max(per_pos.values()) > LOGIT_TOL or mean > LOGIT_MEAN_TOL:
+        raise AssertionError(f"dense-serve {model}: decode logits disagree with the forward")
+    if profile:  # decodes on past the checked position
+        phase_profile(torch, engine, engine.cache, seq)
+    return launches, out
+
+
+def phase_dense_serve(torch, seed, smi, profile: bool = False):
+    """Each of DENSE_MODELS served (``serve_dense``); returns (launches in
+    all, summary by model)."""
+    launches, out = {}, {}
+    for model, layers, from_files, prompt_len, new_tokens, check in DENSE_MODELS:
+        got, out[model] = serve_dense(torch, seed, smi, model, layers, from_files, prompt_len,
+                                      new_tokens, check, profile)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return launches, out
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2612,6 +2820,10 @@ def main() -> int:
     ssm_train_launches, ssm_train = phase_ssm_train(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"ssm-train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_launches, dense = phase_dense_serve(torch, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    log(f"dense-serve: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -2633,7 +2845,8 @@ def main() -> int:
     }
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
                "pilot": pilot_launches, "moe": moe_launches_all, "moe-train": moe_train_launches,
-               "whisper": whisper_launches, "ssm-train": ssm_train_launches}
+               "whisper": whisper_launches, "ssm-train": ssm_train_launches,
+               "dense-serve": dense_launches}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -2659,6 +2872,7 @@ def main() -> int:
     log("moe-train: " + json.dumps(moe_train))
     log("whisper: " + json.dumps(whisper_out))
     log("ssm-train: " + json.dumps(ssm_train))
+    log("dense-serve: " + json.dumps(dense))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

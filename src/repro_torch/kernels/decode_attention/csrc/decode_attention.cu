@@ -40,6 +40,24 @@
 //     column chunk over its share of the tile's slots.  A group that is not a
 //     power of two (G 3, granite's 24/8 heads) is reduced as the next one (4),
 //     the extra head's partial 0 and never stored.
+//   * a row of D 80 (h2o-danube-1.8b) is 10 chunks of 16 bytes in bf16 and 20
+//     in fp32.  In shared memory it keeps its own 160 (320) bytes: cp.async
+//     copies only the real chunks.  The lanes are laid out as for the next
+//     power of two of chunks (16, 32), and a lane or thread whose chunk lies
+//     past the row loads nothing and adds nothing (its partial score is 0,
+//     its p * V sum is never stored), so no byte of padding is read, written
+//     or zero-filled anywhere.
+//   * a group above kWarps (granite-34b's MQA, 48/1 heads) cannot keep every
+//     head's query chunk and accumulator in each thread's registers.  The
+//     score step's slot groups are then cut into HG head parts: slot group s
+//     scores HPG = G / HG heads (held in registers, reduced as above, G 48
+//     at bf16 D 128: 16 parts of 3 heads, each scoring all 32 slots of a
+//     tile).  The softmax step's warps take heads g, g + kWarps, ...  In p * V
+//     the threads of a column chunk take HT head parts of HPT = G / HT heads
+//     over all (or JP = TPU / HT shares of) the tile's slots.  The fold
+//     through distributed shared memory is unchanged.  At G 48 the block does
+//     about 48 flops per cache byte, above the CUDA cores' ~20 (67 TFLOP/s over
+//     3.35 TB/s): there `mma.sync` for Q K^T and P V would be the lever.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -170,16 +188,24 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
   using L = Layout<T, D, G>;
   constexpr int VEC = L::kVec;
   constexpr int CH = L::kChunks;
+  constexpr int CHP = pow2_ceil(CH);     // chunks the lane layout covers (CH but at D 80)
   constexpr int NST = L::kStages;
-  constexpr int LPS = CH < 32 ? CH : 32;  // lanes that share one K row in the score step
-  constexpr int KK = CH / LPS;            // chunks of a row per lane
-  constexpr int SPP = kThreads / LPS;     // slots scored at once
-  constexpr int TPU = kThreads / CH;      // threads that share a column chunk in p * V
-  constexpr int GP = pow2_ceil(G);        // heads the score step's reduction carries
-  static_assert(G <= kWarps && GP <= LPS, "one warp per query head in the softmax step");
-  static_assert(kTile == 32 && kTile % SPP == 0 && kTile % TPU == 0, "tile shape");
+  constexpr int LPS = CHP < 32 ? CHP : 32;  // lanes that share one K row in the score step
+  constexpr int KK = CHP / LPS;           // chunks of a row per lane
+  constexpr int SPP = kThreads / LPS;     // slot groups of the score step
+  constexpr int TPU = kThreads / CHP;     // threads that share a column chunk in p * V
+  constexpr bool kSmall = G <= kWarps;    // every thread carries every head
+  constexpr int HG = kSmall ? 1 : (SPP < 16 ? SPP : 16);  // head parts of the score step
+  constexpr int HPG = G / HG;             // heads a lane scores
+  constexpr int SG = SPP / HG;            // slots scored at once
+  constexpr int GP = pow2_ceil(HPG);      // heads the score step's reduction carries
+  constexpr int HT = kSmall ? 1 : (TPU < 16 ? TPU : 16);  // head parts of p * V
+  constexpr int HPT = G / HT;             // heads a thread accumulates
+  constexpr int JP = TPU / HT;            // shares of a tile's slots in p * V
+  static_assert(G % HG == 0 && G % HT == 0 && GP <= LPS, "head parts of the group");
+  static_assert(kTile == 32 && kTile % SG == 0 && kTile % JP == 0, "tile shape");
   static_assert(kPosCap / kTile <= 32 && kThreads % kTile == 0, "one warp lists the tiles");
-  static_assert(TPU * G * D * 4 <= NST * L::kTileBytes, "the p * V partials reuse the stage");
+  static_assert(JP * G * D * 4 <= NST * L::kTileBytes, "the p * V partials reuse the stage");
 
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* stage = smem + L::kStage;
@@ -208,26 +234,37 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
   const int pos = p.pos_q[b];
 
   // score step: lane `sub` of slot group `grp` holds the query chunks
-  // sub + LPS*kk of every query head, pre-scaled
+  // sub + LPS*kk of query heads hg*HPG.. (hg*HPG + HPG - 1), pre-scaled (0
+  // for a chunk past the row)
   const int sub = tid % LPS;
   const int grp = tid / LPS;
-  float qr[G][KK][VEC];
+  const int hg = grp % HG;
+  const int sg = grp / HG;
+  float qr[HPG][KK][VEC];
   {
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + static_cast<long long>(h) * G * p.q_sh;
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb +
+                 (static_cast<long long>(h) * G + hg * HPG) * p.q_sh;
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < HPG; ++g)
 #pragma unroll
-      for (int kk = 0; kk < KK; ++kk)
+      for (int kk = 0; kk < KK; ++kk) {
+        const int c = sub + kk * LPS;
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          qr[g][kk][e] = to_float(q[g * p.q_sh + (sub + kk * LPS) * VEC + e]) * p.scale_log2;
+          qr[g][kk][e] =
+              CH == CHP || c < CH ? to_float(q[g * p.q_sh + c * VEC + e]) * p.scale_log2 : 0.f;
+      }
   }
-  // p * V step: this thread's column chunk and its share of a tile's slots
-  const int unit = tid % CH;
-  const int jpart = tid / CH;
-  float acc[G][VEC];
+  // p * V step: this thread's column chunk, its heads ht*HPT.. and its share
+  // of a tile's slots
+  const int unit = tid % CHP;
+  const int jpart = tid / CHP;
+  const int ht = jpart % HT;
+  const int jp = jpart / HT;
+  const bool in_row = CH == CHP || unit < CH;
+  float acc[HPT][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < HPT; ++g)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   if (tid < G) {
@@ -296,32 +333,35 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
 
       // scores (log2 units) of the tile's slots, -inf where the mask drops one
 #pragma unroll
-      for (int j = grp; j < kTile; j += SPP) {
+      for (int j = sg; j < kTile; j += SG) {
         const T* krow = reinterpret_cast<const T*>(sk + j * L::kRowBytes);
         float sc[GP];
 #pragma unroll
         for (int g = 0; g < GP; ++g) sc[g] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < KK; ++kk) {
-          float kv[VEC];
-          load_chunk<T, VEC>(krow + (sub + kk * LPS) * VEC, kv);
+          const int c = sub + kk * LPS;
+          if (CH == CHP || c < CH) {
+            float kv[VEC];
+            load_chunk<T, VEC>(krow + c * VEC, kv);
 #pragma unroll
-          for (int g = 0; g < G; ++g)
+            for (int g = 0; g < HPG; ++g)
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) sc[g] = fmaf(qr[g][kk][e], kv[e], sc[g]);
+              for (int e = 0; e < VEC; ++e) sc[g] = fmaf(qr[g][kk][e], kv[e], sc[g]);
+          }
         }
         const float tot = reduce_group<GP, LPS>(sc, sub);
         const int head = sub / (LPS / GP);
-        if (sub % (LPS / GP) == 0 && head < G) {
+        if (sub % (LPS / GP) == 0 && head < HPG) {
           const int w = t * kTile + j;
-          s_p[head * kTile + j] = (w < wn && s_keep[w]) ? tot : -INFINITY;
+          s_p[(hg * HPG + head) * kTile + j] = (w < wn && s_keep[w]) ? tot : -INFINITY;
         }
       }
       __syncthreads();
 
-      // online softmax: warp g folds the tile's scores of query head g
-      if (warp < G) {
-        const int g = warp;
+      // online softmax: warp w folds the tile's scores of query heads
+      // w, w + kWarps, ...
+      for (int g = warp; g < G; g += kWarps) {
         const float s = s_p[g * kTile + lane];
         float mt = s;
 #pragma unroll
@@ -342,22 +382,24 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
       }
       __syncthreads();
 
-      // acc = acc * alpha + p * V over this thread's slots of the tile
+      // acc = acc * alpha + p * V over this thread's heads and slots of the tile
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float alpha = s_alpha[g];
+      for (int g = 0; g < HPT; ++g) {
+        const float alpha = s_alpha[ht * HPT + g];
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
       }
+      if (in_row) {
 #pragma unroll
-      for (int j = jpart; j < kTile; j += TPU) {
-        float vv[VEC];
-        load_chunk<T, VEC>(reinterpret_cast<const T*>(sv + j * L::kRowBytes) + unit * VEC, vv);
+        for (int j = jp; j < kTile; j += JP) {
+          float vv[VEC];
+          load_chunk<T, VEC>(reinterpret_cast<const T*>(sv + j * L::kRowBytes) + unit * VEC, vv);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float pr = s_p[g * kTile + j];
+          for (int g = 0; g < HPT; ++g) {
+            const float pr = s_p[(ht * HPT + g) * kTile + j];
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pr, vv[e], acc[g][e]);
+            for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pr, vv[e], acc[g][e]);
+          }
         }
       }
       __syncthreads();  // the stage buffer and s_p are free again
@@ -366,18 +408,21 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
   cp_async_wait<0>();
   __syncthreads();
 
-  // this block's acc[G][D]: the TPU threads of a column chunk add their
-  // shares, in order, through the (now idle) stage
+  // this block's acc[G][D]: the JP threads of a column chunk and head part
+  // add their shares, in order, through the (now idle) stage
   float* red = reinterpret_cast<float*>(stage);
+  if (in_row) {
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < HPT; ++g)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) red[jpart * G * D + g * D + unit * VEC + e] = acc[g][e];
+      for (int e = 0; e < VEC; ++e)
+        red[jp * G * D + (ht * HPT + g) * D + unit * VEC + e] = acc[g][e];
+  }
   __syncthreads();
   for (int i = tid; i < G * D; i += kThreads) {
     float a = 0.f;
 #pragma unroll
-    for (int jp = 0; jp < TPU; ++jp) a += red[jp * G * D + i];
+    for (int s = 0; s < JP; ++s) a += red[s * G * D + i];
     s_part[i] = a;
   }
 
@@ -386,11 +431,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
   cluster.sync();
   const int n = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  if (tid < n * G) {
-    const int s = tid / G;
-    const int g = tid % G;
-    s_w[tid] = cluster.map_shared_rank(s_m, s)[g];
-    s_peer_l[tid] = cluster.map_shared_rank(s_l, s)[g];
+  for (int i = tid; i < n * G; i += kThreads) {
+    const int s = i / G;
+    const int g = i % G;
+    s_w[i] = cluster.map_shared_rank(s_m, s)[g];
+    s_peer_l[i] = cluster.map_shared_rank(s_l, s)[g];
   }
   __syncthreads();
   if (tid < G) {
@@ -478,6 +523,7 @@ int dispatch_group(const Request& r, int group) {
     case 3: return run<T, D, 3>(r);
     case 4: return run<T, D, 4>(r);
     case 8: return run<T, D, 8>(r);
+    case 48: return run<T, D, 48>(r);
     default: return -1;
   }
 }
@@ -486,6 +532,7 @@ template <typename T>
 int dispatch_dim(const Request& r, int head_dim, int group) {
   switch (head_dim) {
     case 64: return dispatch_group<T, 64>(r, group);
+    case 80: return dispatch_group<T, 80>(r, group);
     case 128: return dispatch_group<T, 128>(r, group);
     case 256: return dispatch_group<T, 256>(r, group);
     default: return -1;

@@ -29,7 +29,10 @@
 //     (M/G positions x G heads, M = 128 where the grid fills the card, else
 //     64) are 16 per warp, so each K/V tile is loaded once for the group.
 //     Where G does not divide M (G 3: 42 positions in 128 rows) the last
-//     M % G rows are spare and masked (`Rows::span`).
+//     M % G rows are spare and masked (`Rows::span`).  granite-34b's MQA
+//     (G 48) packs 2 positions in 128 rows (the last two warps spare) and 1
+//     in 64; the backward has no G 48 (its 32-row dK/dV tiles would hold no
+//     position), and the wrapper refuses one (`ops.BWD_GROUPS`).
 //     S stays in registers; the online softmax (fp32, log2 domain, scores
 //     scaled by scale*log2(e) after the product) runs on the accumulator
 //     fragments, and P is rounded to bf16 in registers and fed as the A

@@ -18,9 +18,13 @@ import torch
 from .. import build, count_launch
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-#: the instances the CUDA source is compiled for
+#: the instances the CUDA source is compiled for (the group is a runtime
+#: argument; G 48 is granite-34b's 48 query heads over one kv head)
 HEAD_DIMS = (64, 80, 128, 256)
-GROUPS = (1, 2, 3, 4, 8)
+GROUPS = (1, 2, 3, 4, 8, 48)
+#: the groups the backward kernels take: their query tiles hold kMR / G
+#: positions (64 / G in fp32, 32 / G in bf16), none at G 48
+BWD_GROUPS = (1, 2, 3, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _Strides = ctypes.c_longlong * 3
@@ -122,6 +126,11 @@ def _fwd_cuda(q, k, v, causal, window, scale):
 def _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale):
     _check(q, k, v)
     b, sq, hq, _ = q.shape
+    if hq // k.shape[2] not in BWD_GROUPS:
+        raise NotImplementedError(
+            f"flash_attention backward kernels have no instance for group={hq // k.shape[2]} "
+            f"(built for {BWD_GROUPS})"
+        )
     if dout.device != q.device or dout.dtype != q.dtype:
         raise TypeError("flash_attention: dout must match q's device and dtype")
     if dout.stride(3) != 1 or any((dout.stride(i) * dout.element_size()) % 16 for i in range(3)):

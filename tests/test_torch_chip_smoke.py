@@ -86,6 +86,16 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         n_kv_heads=2, moe=base.MoEConfig(n_experts=4, top_k=4, d_ff_expert=32), **bf16)
     tiny_whisper = dataclasses.replace(
         base.reduced(registry.get_config("whisper-large-v3")), name="tiny-whisper", **bf16)
+    # phase 12: h2o-danube's head dim 80 and granite-34b's 48 heads over one
+    # kv head, at 2 layers
+    tiny_danube = dataclasses.replace(
+        base.reduced(registry.get_config("h2o-danube-1.8b")), name="tiny-danube", head_dim=80,
+        **bf16)
+    tiny_granite = dataclasses.replace(
+        base.reduced(registry.get_config("granite-34b")), name="tiny-granite", n_heads=48,
+        n_kv_heads=1, **bf16)
+    monkeypatch.setitem(registry.ARCHS, "tiny-danube", tiny_danube)
+    monkeypatch.setitem(registry.ARCHS, "tiny-granite", tiny_granite)
     monkeypatch.setitem(registry.ARCHS, "tiny-moe", tiny_moe)
     monkeypatch.setitem(registry.ARCHS, "tiny-whisper", tiny_whisper)
     monkeypatch.setitem(registry.ARCHS, "tiny-mamba", tiny_mamba)
@@ -98,8 +108,11 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         TRAIN_MODEL="tiny-train", TRAIN_BATCH=2, TRAIN_SEQ=40, TRAIN_LR=1e-2,
         FLASH_CASES=[("h2o-danube train", 2, 40, 8, 2, 16, True, 16),
                      ("gemma3-1b forward, global", 2, 24, 4, 1, 16, True, None),
-                     ("whisper cross", 2, (12, 20), 4, 4, 16, False, None)],
-        FLASH_FP32_CASES=[("fp32 non-causal", 1, 20, 4, 1, 16, False, None)],
+                     ("whisper cross", 2, (12, 20), 4, 4, 16, False, None),
+                     ("h2o-danube serve forward", 2, 14, 8, 2, 16, True, 8),
+                     ("granite-34b forward", 2, 12, 48, 1, 16, True, None)],
+        FLASH_FP32_CASES=[("fp32 non-causal", 1, 20, 4, 1, 16, False, None),
+                          ("fp32 G 48 ragged", 1, 10, 48, 1, 16, True, 4)],
         RMSNORM_CASES=[(4, 64), (40, 128)], RMSNORM_RESIDUAL_CASES=[(4, 64)],
         RMSNORM_BWD_CASES=[(40, 64), (4, 64)],
         SSD_CASES=[("mamba2-370m prefill", 1, 64, 4, 16, 16, 1, "float32", False),
@@ -124,6 +137,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         WHISPER_MODEL="tiny-whisper", WHISPER_PROMPT_LEN=4, WHISPER_NEW_TOKENS=6,
         WHISPER_MAX_LEN=12, WHISPER_BATCH=2, WHISPER_CHECK_POSITIONS=(0, 3, 5, 9),
         WHISPER_TRAIN_BATCH=2, WHISPER_TRAIN_SEQ=12,
+        # tiny-granite cut to 1 of its 2 layers, as granite-34b is cut
+        DENSE_MODELS=[("tiny-danube", None, True, 10, 4, (0, 7, 9, 13)),
+                      ("tiny-granite", 1, False, 8, 4, (0, 5, 7, 11))],
+        DENSE_BATCH=2, DENSE_MAX_LEN=16,
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -203,7 +220,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     dec = kernels["decode_attention"]["cases"]
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
     assert [(c["plan"]["n_split"], c["plan"]["split_len"]) for c in dec] == [
-        (16, 32), (16, 32), (16, 64), (16, 64), (2, 256), (8, 64), (4, 128), (3, 150), (3, 500)]
+        (16, 32), (16, 32), (16, 64), (16, 64), (2, 256), (8, 64), (4, 128), (3, 150), (3, 500),
+        (8, 128), (8, 512), (16, 64), (16, 64)]
     # moe: two engines (bf16 and int8 caches) of 13 steps over 2 layers, and
     # the drop-free and the published-capacity forwards (a third drop-free
     # one when the int8 engine's tokens differ)
@@ -241,6 +259,19 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         "rmsnorm": (2 * 7 + 4 * (7 + 6)) + (2 * 17 + 4 * (17 + 12)),
         "rmsnorm_bwd": 4 * 7 + 4 * 17, "decode_attention": 0, "rmsnorm_residual": 0}
     assert kernels["ssd_scan_bwd"]["launches"] == ssm_train["ssd_scan_bwd"]
+    # dense-serve: tiny-danube (2 layers) decodes 10 + 4 - 1 steps and the
+    # engine's next one, then runs the forward; tiny-granite (1 layer) 8 + 4 - 1
+    # and one more, then its forward
+    dense = {name: k["launches_by_path"]["dense-serve"] for name, k in kernels.items()}
+    assert dense == {"decode_attention": 14 * 2 + 12 * 1, "rmsnorm": (14 * 5 + 5) + (12 * 3 + 3),
+                     "flash_attention": 2 + 1, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                     "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    # B1's phase 12 cases (G 48 among them) run the forward only
+    fwd = [c["case"] for c in kernels["flash_attention"]["cases"]]
+    bwd = [c["case"] for c in kernels["flash_attention_bwd"]["cases"]]
+    for case in ("h2o-danube serve forward", "granite-34b forward"):
+        assert case in fwd and case not in bwd
+    assert "h2o-danube train" in bwd
     assert kernels["ssd_scan_bwd"]["library_ms"] is None
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",

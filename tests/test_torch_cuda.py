@@ -38,8 +38,8 @@ def _close(out, ref, dtype):
     assert bool((diff <= 1e-5 + rtol * ref.float().abs()).all()), diff.max().item()
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, d, g, dtype):
     from repro_torch.kernels.decode_attention import ops
@@ -69,8 +69,8 @@ def test_decode_kernel_matches_plain(cuda, d, g, dtype):
 def test_decode_kernel_rejects_what_it_has_no_instance_for(cuda):
     from repro_torch.kernels.decode_attention import ops
 
-    q = torch.zeros(1, 1, 3, 80, device=cuda, dtype=torch.bfloat16)
-    k = torch.zeros(1, 8, 1, 80, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 1, 3, 96, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 1, 96, device=cuda, dtype=torch.bfloat16)
     pos_q = torch.zeros(1, device=cuda, dtype=torch.int32)
     pos_k = torch.zeros(1, 8, device=cuda, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
@@ -90,7 +90,26 @@ DECODE_PLANS = [
     ("G 3, empty splits", 1, 2, 3, 64, 1024, 300, (16, 64)),
     # whisper-large-v3's self cache (20/20 heads, max_len 448) at batch 4
     ("whisper self", 4, 20, 1, 64, 448, 127, (3, 150)),
+    # h2o-danube-1.8b (32/8 heads of 80): the serve path's 1024 slots, and a
+    # 4096-slot ring (its window) wrapped
+    ("h2o-danube D 80", 4, 8, 4, 80, 1024, 543, (8, 128)),
+    ("h2o-danube D 80, ring wrapped", 4, 8, 4, 80, 4096, 4700, (8, 512)),
+    # granite-34b (48/1 heads of 128: MQA, G 48) at batch 4 and 8
+    ("granite-34b G 48", 4, 1, 48, 128, 1024, 279, (16, 64)),
+    ("granite-34b G 48 at B 8", 8, 1, 48, 128, 1024, 279, (16, 64)),
 ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_instances_fit_the_largest_cluster(cuda, dtype):
+    """Every (D, G) instance, the G 48 ones with the most shared memory
+    among them, fits a cluster of MAX_SPLIT blocks on the card."""
+    from repro_torch.kernels.decode_attention import ops
+
+    for d in ops.HEAD_DIMS:
+        for g in ops.GROUPS:
+            clusters, smem = ops.occupancy(dtype, d, g, ops.MAX_SPLIT)
+            assert clusters >= 1 and smem <= 227 * 1024, (d, g, clusters, smem)
 
 
 @pytest.mark.parametrize("case", DECODE_PLANS, ids=[c[0] for c in DECODE_PLANS])
@@ -215,7 +234,7 @@ def test_rmsnorm_kernels_at_train_width_with_a_ragged_tile(cuda, dtype):
 
 
 @pytest.mark.parametrize("rows,d", [(1, 64), (5, 1152), (7, 1024), (1022, 2048), (33, 4096),
-                                    (9, 1280), (301, 1536)])
+                                    (9, 1280), (301, 1536), (4, 6144)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, with_residual):
@@ -382,6 +401,54 @@ def test_flash_kernels_at_training_path_shapes(cuda, case, dtype):
     q, k, v = _flash_inputs(cuda, 64, hq // hkv, dtype, seed=sq + sk, b=b, s=sk, hkv=hkv,
                             sq=sq if sq != sk else None)
     _check_flash(q, k, v, [(causal, None)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_at_group_48_matches_plain(cuda, dtype):
+    """granite-34b's MQA (48/1 heads of 128): its serve forward [4, 280]
+    (bf16 takes 128-row query tiles of 2 positions, 32 spare rows) and a
+    ragged [1, 100] (64-row tiles of 1 position, 16 spare rows), every
+    mask; out and lse against the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref, kernel_key_tile
+
+    for b, s, masks in ((4, 280, [(True, None)]), (1, 100, FLASH_MASKS)):
+        q, k, v = _flash_inputs(cuda, 128, 48, dtype, seed=s, b=b, s=s, hkv=1)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        for causal, window in masks:
+            before = ops.flash_attention.launches
+            out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
+            ref, lse_ref = flash_attention_ref(q32, k32, v32, causal=causal, window=window)
+            torch.cuda.synchronize()
+            assert ops.flash_attention.launches == before + 1
+            assert out.dtype == dtype and out.shape == q.shape
+            empty = lse_ref == float("-inf")
+            assert torch.equal(lse == float("-inf"), empty)
+            _close(lse[~empty], lse_ref[~empty], torch.float32)
+            if dtype == torch.bfloat16:
+                ref_p, _ = flash_attention_ref(q32, k32, v32, causal=causal, window=window,
+                                               p_dtype=torch.bfloat16, block_k=kernel_key_tile(128))
+                _close_rounded(out, ref, ref_p)
+            else:
+                _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_at_group_48_raises_before_any_launch(cuda, dtype):
+    """The backward kernels have no G 48 instance: autograd through the
+    forward raises NotImplementedError and no backward kernel runs."""
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v = (t.detach().requires_grad_() for t in _flash_inputs(
+        cuda, 128, 48, dtype, seed=48, b=1, s=64, hkv=1))
+    out = ops.flash_attention(q, k, v)
+    before = (ops.flash_attention.launches, ops.flash_attention.backward_launches)
+    with pytest.raises(NotImplementedError, match="group=48"):
+        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    with pytest.raises(NotImplementedError, match="group=48"):
+        ops.flash_attention_bwd(q, k, v, out, torch.zeros(1, 48, 64, device=cuda), out)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches, ops.flash_attention.backward_launches) == before
 
 
 def test_flash_kernel_rejects_what_it_has_no_instance_for(cuda):

@@ -6,7 +6,9 @@ plain PyTorch (split by split, 32-slot tiles, the partials folded in cluster
 rank order).  At the main path's plans it is held against the plain version
 ``decode_attention_ref`` and, where the Pallas kernel can express the mask
 (no wrapped ring), against the Pallas kernel in interpret mode; GQA groups
-1, 3 (granite-moe-3b-a800m) and 4.
+1, 3 (granite-moe-3b-a800m), 4 and 48 (granite-34b's MQA), head dims 64,
+80 (h2o-danube-1.8b, which the Pallas wrapper pads to 128 itself), 128 and
+256, and a wrapped ring at D 80.
 
 Tolerance: fp32, max error over the reference's magnitude below 1e-4 (the
 same sums taken in another order)."""
@@ -52,6 +54,10 @@ def test_split_plan_covers_the_cache(b, hkv, sk, sms):
     ((4, 32, 512), (2, 256)),  # zamba2-1.2b shared attention
     ((4, 8, 512), (8, 64)),  # granite-moe-3b-a800m (24/8 heads)
     ((8, 8, 512), (4, 128)),
+    ((4, 8, 1024), (8, 128)),  # h2o-danube-1.8b (32/8 heads of 80), served
+    ((4, 8, 4096), (8, 512)),  # its 4096-slot window ring
+    ((4, 1, 1024), (16, 64)),  # granite-34b (48/1 heads: G 48)
+    ((8, 1, 1024), (16, 64)),
 ])
 def test_split_plan_of_the_main_path(shape, plan):
     assert split_plan(*shape, SMS) == plan
@@ -76,6 +82,13 @@ PALLAS_PLANS = [
     # fewer kv heads; splits 5-7 hold only slots past the second query
     ("granite-moe G 3", (4, 8), 2, 512, 2, 3, 64, None, [278, 300]),
     ("granite-moe G 3, window", (4, 8), 2, 512, 2, 3, 64, 100, [278, 511]),
+    # h2o-danube-1.8b's plan and head dim 80 (a row of 10 bf16 chunks), at
+    # fewer kv heads; with a window, as its sliding-window layers
+    ("h2o-danube D 80", (4, 8), 2, 1024, 2, 4, 80, None, [543, 1000]),
+    ("h2o-danube D 80, window", (4, 8), 2, 1024, 2, 4, 80, 300, [543, 1023]),
+    # granite-34b's plan and MQA group of 48 at D 128, over two kv heads;
+    # splits 5-15 hold only slots past the first query
+    ("granite-34b G 48", (4, 1), 2, 1024, 2, 48, 128, None, [279, 800]),
 ]
 
 
@@ -110,6 +123,25 @@ def test_split_fold_on_a_wrapped_ring(sk, window, pos):
     slots = torch.arange(sk, dtype=torch.int32)
     pk = (pos - torch.remainder(pos - slots, sk))[None].expand(b, sk)
     pq = torch.tensor([pos, pos, pos - 7, -1], dtype=torch.int32)
+    split = decode_attention_split_ref(qt, kt, vt, pq, pk, n_split=n_split,
+                                       split_len=split_len, window=window)
+    plain = decode_attention_ref(qt, kt, vt, pq, pk, window=window)
+    assert _maxerr(split.numpy(), plain.numpy()) < TOL
+    assert bool((split[-1] == 0).all())
+
+
+def test_split_fold_on_a_wrapped_ring_at_head_dim_80():
+    """h2o-danube-1.8b's 4096-slot window ring wrapped at position 4700 (its
+    plan for 32/8 heads, at 2 kv heads here): the first row keeps the whole
+    window, the second (an earlier query) only the slots at or before it,
+    the last none (0)."""
+    b, hkv, g, d, sk, window = 3, 2, 4, 80, 4096, 4096
+    n_split, split_len = split_plan(4, 8, sk, SMS)
+    rng = np.random.default_rng(4700)
+    qt, kt, vt = (torch.from_numpy(a) for a in _inputs(rng, b, sk, hkv, g, d))
+    slots = torch.arange(sk, dtype=torch.int32)
+    pk = (4700 - torch.remainder(4700 - slots, sk))[None].expand(b, sk)
+    pq = torch.tensor([4700, 4200, -1], dtype=torch.int32)
     split = decode_attention_split_ref(qt, kt, vt, pq, pk, n_split=n_split,
                                        split_len=split_len, window=window)
     plain = decode_attention_ref(qt, kt, vt, pq, pk, window=window)

@@ -3,8 +3,9 @@ CPU) against the JAX package on the same inputs, made with numpy from a seed:
 
 * the forward against the Pallas kernel in interpret mode (as
   ``tests/test_kernels.py`` runs it), over D {64, 80}, G {1, 4}, causal on and
-  off, window {None, 16}, fp32 and bf16, and at G 3 (granite-moe-3b-a800m)
-  with S 100, no multiple of the kernel's 42-position tiles at G 3;
+  off, window {None, 16}, fp32 and bf16, at G 3 (granite-moe-3b-a800m)
+  with S 100, no multiple of the kernel's 42-position tiles at G 3, and at
+  G 48 (granite-34b's MQA, 2 positions a 128-row tile) with S 101;
 * the plain backward against ``jax.vjp`` of ``blocked_attention`` (whose
   custom VJP is the rule the port copies) and against torch autograd through
   the port's own ``gqa_attention``;
@@ -99,6 +100,26 @@ def test_flash_forward_at_group_3_matches_pallas_interpret(causal, window, dtype
     assert _maxerr(_f32(out), _f32(ref)) < TOL[dtype]
     tiled, lse = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
                                      block_k=kernel_key_tile(64))
+    _, lse_full = flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    assert _maxerr(_f32(tiled), _f32(ref)) < TOL[dtype]
+    assert _maxerr(lse.numpy(), lse_full.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_at_group_48_matches_pallas_interpret(causal, window, dtype):
+    """granite-34b's MQA group of 48 at D 128 (96/2 heads here) at S 101,
+    an odd number of positions for the kernel's 2-position 128-row tiles,
+    against the Pallas forward (interpret mode) and, lse included, the plain
+    version in the kernel's key tiles."""
+    rng = np.random.default_rng(48 + causal + (window or 0))
+    (q, qt), (k, kt), (v, vt) = _qkv(rng, 1, 101, 2, 48, 128, dtype)
+    ref = jax_flash_attention(q, k, v, causal=causal, window=window, interpret=True)
+    out = flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert out.shape == qt.shape and out.dtype == TORCH[dtype]
+    assert _maxerr(_f32(out), _f32(ref)) < TOL[dtype]
+    tiled, lse = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                     block_k=kernel_key_tile(128))
     _, lse_full = flash_attention_ref(qt, kt, vt, causal=causal, window=window)
     assert _maxerr(_f32(tiled), _f32(ref)) < TOL[dtype]
     assert _maxerr(lse.numpy(), lse_full.numpy()) < 1e-5

@@ -5,7 +5,10 @@ port's decode against its own teacher-forced forward; granite-moe-3b-a800m-
 smoke (MoE, GQA group 3): forward logits, the aux loss and ``loss_fn``, and
 engine tokens on the bf16 and the int8 KV cache; the int8 cache's decode
 logits and leaves (granite, and h2o-danube-1.8b-smoke past its ring wrap),
-and its quantiser bit for bit on the same values.
+and its quantiser bit for bit on the same values; the dense models served
+at their published attention shapes, h2o-danube-1.8b-smoke at head dim 80
+(past its ring wrap) and granite-34b-smoke at 48/1 heads (MQA, group 48):
+decode at every position against JAX and against the port's own forward.
 
 Tolerances: ``_maxerr`` below 1e-4 in fp32 and 2e-2 in bf16."""
 
@@ -258,3 +261,24 @@ def test_int8_quantiser_matches_jax_bit_for_bit():
         np.testing.assert_array_equal(tcache[n].numpy(), np.asarray(jnew[n]), err_msg=n)
     assert tcache["k"][0, 0, 0, :4].tolist() == [127, 2, -4, 0]  # halves to even
     assert float(tcache["k_scale"][1, 0, 1]) == np.float32(1e-8)
+
+
+# ------------------------------------------------ dense serving shapes
+# h2o-danube-1.8b's head dim 80 (its 4-slot window ring wraps 3 times in 12
+# positions) and granite-34b's 48 query heads over one kv head
+DANUBE_D80 = ("h2o-danube-1.8b-smoke", dict(head_dim=80, sliding_window=4))
+GRANITE_34B = ("granite-34b-smoke", dict(n_heads=48, n_kv_heads=1))
+
+
+@pytest.mark.parametrize("case", [DANUBE_D80, GRANITE_34B], ids=["danube-d80", "granite-34b-g48"])
+def test_dense_serve_decode_matches_jax_ref(case):
+    """Decode logits at every position against JAX ``impl="ref"`` from the
+    same checkpoint files, and against the port's teacher-forced forward."""
+    japi, jparams, tapi, tparams, tokens = _setup_named(*case, seed=3)
+    ref = _jax_decode(japi, jparams, tokens)
+    out = _port_decode(tapi, tparams, tokens)
+    for i in range(SEQ):
+        assert _maxerr(out[:, i], ref[:, i]) < TOL["float32"], i
+    with torch.no_grad():
+        full = tapi.forward(tparams, torch.from_numpy(tokens).long())
+    assert _maxerr(out, full.numpy()) < TOL["float32"]

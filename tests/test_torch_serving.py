@@ -1,5 +1,7 @@
 """The port's DecodeEngine gives the same greedy tokens as the JAX
-DecodeEngine (``impl="ref"``) from the same checkpoint DU files."""
+DecodeEngine (``impl="ref"``) from the same checkpoint DU files: gemma3-1b-
+smoke, and the dense models at their published attention shapes
+(h2o-danube-1.8b-smoke at head dim 80, granite-34b-smoke at 48/1 heads)."""
 
 import dataclasses
 
@@ -40,6 +42,27 @@ def test_generate_matches_jax_engine(window):
     ref = np.asarray(jeng.generate(jnp.asarray(PROMPTS, jnp.int32), NEW))
 
     tcfg = dataclasses.replace(get_config("gemma3-1b-smoke"), sliding_window=window)
+    eng = DecodeEngine.from_files(build_model(tcfg, device="cpu"), files, batch=2, max_len=16)
+    out = eng.generate(torch.tensor(PROMPTS), NEW)
+    assert out.shape == (2, NEW)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("name,over", [
+    ("h2o-danube-1.8b-smoke", dict(head_dim=80, sliding_window=4)),
+    ("granite-34b-smoke", dict(n_heads=48, n_kv_heads=1)),
+], ids=["danube-d80", "granite-34b-g48"])
+def test_dense_engine_tokens_match_jax_engine(name, over):
+    """Served from checkpoint files, the port's engine decodes the JAX
+    engine's tokens (danube's window ring wraps three times)."""
+    jcfg = dataclasses.replace(jax_get_config(name), **over)
+    files = checkpoint_files(0, "serve", jax_build_model(jcfg).init(jax.random.PRNGKey(1)))
+    jparams = unflatten_tree(
+        {rel[7:-4]: decode_array(b) for rel, b in files.items() if rel.startswith("params/")}
+    )
+    jeng = JaxDecodeEngine(jax_build_model(jcfg, impl="ref"), jparams, batch=2, max_len=16)
+    ref = np.asarray(jeng.generate(jnp.asarray(PROMPTS, jnp.int32), NEW))
+    tcfg = dataclasses.replace(get_config(name), **over)
     eng = DecodeEngine.from_files(build_model(tcfg, device="cpu"), files, batch=2, max_len=16)
     out = eng.generate(torch.tensor(PROMPTS), NEW)
     assert out.shape == (2, NEW)
