@@ -174,12 +174,13 @@ PILOT_STEPS, PILOT_CHUNK_STEPS = 4, 2
 # next CU may stage it into, and the seal's pass over the joined file stream.
 # At 24 layers a checkpoint is 25.6 GB (bf16 params, fp32 m, v and masters),
 # seven of which do not fit the ~103 GB of one H100 host; 8 layers (10.1 GB)
-# do, and 4 (about 6.2 GB) keep the phase, whose time is the host's codec
-# over those bytes, near two minutes.  The cut is of depth only: every width
-# is h2o-danube-1.8b's.  The
+# do, and 2 (about 4.2 GB) keep the phase, whose time is the host's codec
+# over those bytes, under two minutes and the script under 600 s (at 4
+# layers, 6.2 GB, the phase took 134-155 s and the script 578-622 s).  The
+# cut is of depth only: every width is h2o-danube-1.8b's.  The
 # Pilot-Data are mem://: on a sharedfs:// one each 64 KiB chunk of a DU is a
 # file, and a 12 GB checkpoint took 210 s to write and 95 s to read back.
-PILOT_TRAIN_LAYERS = 4
+PILOT_TRAIN_LAYERS = 2
 PILOT_HOST_COPIES = 7
 PILOT_SERVE_PROMPT_LEN, PILOT_SERVE_NEW_TOKENS, PILOT_SERVE_MAX_LEN = 16, 8, 64
 PILOT_TIMEOUT_S = 900.0
@@ -460,10 +461,25 @@ def phase_build(torch):
     log(f"build: nvcc {nvcc_s:.2f} s for {sorted(build.SOURCES)} (ptxas register and "
         f"spill report in {build.BUILD_DIR.relative_to(ROOT)}/*.log), "
         f"triton JIT {triton_s:.2f} s")
+    check_no_spills(build, "ssd_scan_bwd")
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
                           check=True, capture_output=True, text=True, timeout=300).stdout
     check_tensor_cores(mma_counts(sass))
+
+
+def check_no_spills(build, name: str) -> None:
+    """Logs the registers and spills ptxas reports for each kernel of source
+    ``name``, and fails if any kernel spills."""
+    report = build.ptxas_report(build.library_path(name).with_suffix(".log").read_text())
+    if not report:
+        raise AssertionError(f"build: no ptxas report for {name}")
+    log(f"build: {name} ptxas: " + ", ".join(
+        f"{fn[-40:]} {regs} registers, {st}/{ld} bytes spilled"
+        for fn, (regs, st, ld) in sorted(report.items())))
+    spilled = [fn for fn, (_, st, ld) in report.items() if st or ld]
+    if spilled:
+        raise AssertionError(f"build: {name} spills in {spilled}")
 
 
 # the bf16 B1 kernels, which must run on the tensor cores
@@ -1069,16 +1085,28 @@ def ssd_bwd_cases(torch, timer, gen):
         # logged beside it
         bound, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
         fp32_bound = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        # the products each tensor pass runs, on the same count: dprev (dy o
+        # e)^T C; dx dy x^T, S^T dy, dM^T C, B g^T and x g; dC dy x^T, dM B and
+        # (dy o e) prev (dy x^T is run by both)
+        state = b * h * 2 * q * p * n
+        pass_flops = {
+            "dprev": state * (chunks - (0 if init else 1)),
+            "dx": b * h * chunks * 2 * tri * (2 * p + n) + 2 * state * (chunks - (0 if dfin else 1)),
+            "dc": b * h * chunks * 2 * tri * (p + n) + state * (chunks - (0 if init else 1)),
+        }
+        pass_tflops = {k: f / passes_ms[k] / 1e9 for k, f in pass_flops.items()}
         cases.append(dict(case=label, B=b, S=s, H=h, P=p, N=n, G=g, chunk=q, flops=flops,
                           bytes=n_bytes, ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
                           bound_by=by, fp32_bound_ms=fp32_bound, passes_ms=passes_ms,
-                          pass_max_abs_err=pass_errs, max_abs_err=err))
+                          passes_tflops=pass_tflops, pass_max_abs_err=pass_errs, max_abs_err=err))
         log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, no library call, bound "
             f"{bound:.4f} by {by} in 3xTF32, {fp32_bound:.4f} on the fp32 CUDA cores; "
             f"{flops / 1e9:.4g} GFLOP, "
             f"{n_bytes / 1e6:.4g} MB, {flops / ms / 1e9:.1f} TFLOP/s), max|err| {err:.2e} "
             "(rtol 1e-4, atol 1e-5 x max|ref|), two calls equal bit for bit; passes "
-            + ", ".join(f"{k} {v:.4f}" for k, v in passes_ms.items()) + " ms")
+            + ", ".join(f"{k} {v:.4f}" for k, v in passes_ms.items()) + " ms; TFLOP/s "
+            + ", ".join(f"{k} {v:.1f}" for k, v in pass_tflops.items())
+            + " (products needed, TF32 at 1x)")
         del x, dy, dA, bc, B_, C_, state, dfinal
         if DEVICE == "cuda":
             torch.cuda.empty_cache()

@@ -15,12 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
@@ -80,6 +81,28 @@ def _build(name: str) -> Path:
     if res.returncode != 0:
         raise KernelBuildError(f"nvcc failed for {name} (rc {res.returncode}):\n{res.stdout}")
     os.replace(tmp, out)  # a finished library appears whole
+    return out
+
+
+def ptxas_report(log: str) -> Dict[str, Tuple[int, int, int]]:
+    """(registers, spill store bytes, spill load bytes) of each kernel in a
+    build log's ptxas report (``-Xptxas -v``), by the kernel's mangled
+    name."""
+    out: Dict[str, Tuple[int, int, int]] = {}
+    fn, spills = None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), *spills)
+            fn = None
     return out
 
 

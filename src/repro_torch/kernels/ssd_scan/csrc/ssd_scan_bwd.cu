@@ -38,17 +38,64 @@
 //             plain version's (a tree scan missed the forward's gate);
 //   6. fold   dB and dC [B, S, G, N]: each group's heads summed in order.
 // dB and dC sum over a group's heads, which passes 3 and 4 keep apart in
-// per-head scratch; no pass uses atomics, so results are deterministic.  The
-// products of passes 1, 3 and 4 run on the tensor cores in 3xTF32, as the
-// forward's do (ssd_mma.cuh): 8 warps own a 64-row tile as 16-row slices of
-// half its columns, read their operands from shared memory in rows padded
-// to 4 mod 32 floats, and dy x^T, whose error dcum's cancelling sums carry,
-// rounds each k-step into its sum.  Row and column sums of dS o S are taken
-// from the accumulator fragments by shuffles and folded across warps in a
-// fixed order.  exp(cum_i - cum_j) is taken only where i >= j (a select,
-// never a multiply by a mask: above the diagonal it overflows to inf, and
-// inf * 0 is NaN); C B^T above the diagonal is never computed by the forward
-// and is never read into a sum.
+// per-head scratch; no pass uses atomics and every sum is folded in a fixed
+// order, so two calls are equal bit for bit.  exp(cum_i - cum_j) is taken
+// only where i >= j (a select, never a multiply by a mask: above the
+// diagonal it overflows to inf, and inf * 0 is NaN); C B^T above the
+// diagonal is never computed by the forward and is never read into a sum.
+//
+// The tensor passes (1, 3, 4), as designed for Hopper:
+//   * Products in 3xTF32 on mma.sync m16n8k8, as the forward's (ssd_mma.cuh):
+//     8 warps own a 64-row product as 16-row slices of half its columns and
+//     read their operands from shared memory in rows padded to 4 mod 32
+//     floats; dy x^T, whose error dcum's cancelling sums carry, rounds each
+//     k-step into its sum.  Row and column sums of dS o S are taken from the
+//     accumulator fragments by shuffles and folded across warps in order.
+//   * A ring of kStages = 2 stages in shared memory, filled by cp.async (16
+//     bytes, .cg, where x, B, C and dy and their strides are 16-byte aligned;
+//     else 4 bytes, .ca: the unaligned rows take the same pipeline), with
+//     zero fill past the chunk.  Stage k + 1 is issued as soon as stage k has
+//     landed and every warp is past stage k - 1, and lands while stage k is
+//     multiplied.  dx streams 32 rows a stage (the C B^T tile, dy_I, C_I,
+//     cum_I), dC 32 keys (the C B^T tile, x_J, B_J, cum_J), dprev 64 rows
+//     (dy, C, cum).  B_J and dstate (dx), prev and C_I (dC) are staged after
+//     the walk, over the ring.
+//   * 16 warps of tensor work on an SM as 2 blocks of 8 warps: each block
+//     fits in half the SM's 228 KB, and __launch_bounds__(256, 2) holds a
+//     thread to 128 registers.  Shared memory a block, in floats (x 4 bytes),
+//     with S = 32 positions a stage, T = 64, P = 64, rows padded by 4:
+//       dprev  2 (T (P + 4) + T (N + 4) + T)
+//              N 64: 17,536 (70,144 B); N 128: 25,728 (102,912 B)
+//       dx     x_J T (P + 4), dM S (P + 4), ring 2 (2 S (T + 4) + S (N + 4)
+//              + S), cum_J, w and folds 6 T
+//              N 64: 20,032 (80,128 B); N 128: 24,128 (96,512 B)
+//       dC     dy_I T (P + 4), ring 2 (T (S + 4) + S (P + 4) + S (N + 4) +
+//              S), cum_I and folds 3 T
+//              N 64: 17,920 (71,680 B); N 128: 22,016 (88,064 B)
+//     ops.py mirrors these sums (`bwd_smem_bytes`) and the card test holds
+//     them to ssd_scan_bwd_smem_bytes below.  ptxas (-Xptxas -v, in the build
+//     log): 0 bytes spilled in every kernel, at most 128 registers a thread
+//     (dx's dM^T C at N 128 unrolls one k-step, where two spilled 48 bytes);
+//     chip_smoke.py fails a build that spills.
+//   * The TF32 split stays in the fragment loads, as in the forward.  Split
+//     once as tiles land ({hi, lo} pairs, one 64-bit load a fragment element)
+//     was built and measured on the card, with one 16-warp block an SM and
+//     with two 8-warp blocks, and lost to this design at both shapes: a
+//     split element is 8 bytes of shared memory to read where a raw one is 4,
+//     and split tiles take twice the space, so fewer and smaller stages fit;
+//     those passes ran at the shared-memory rate (PERF.md).
+//   * mma.sync rather than wgmma: wgmma reads tf32 only K-major from shared
+//     memory, so S^T dy, dM^T C and dM B would need transposed copies of
+//     dy_I, C_I and B_J; it accumulates inside the tensor core, so dy x^T
+//     could not round a k-step into its sum; and it has no CPU rehearsal.
+//   * dy x^T and L are computed in both dx and dC: dx walks the row tiles of
+//     a key tile and dC the key tiles of a row tile, so neither can sum the
+//     other's outputs without atomics.  Handing dM from dx to dC would write
+//     and read 4 bytes a lower-triangle entry, 2 x 335 MB at mamba2's
+//     training shape ([4,4096,32,64], chunk 256: 2048 (b, chunk, head) x 10
+//     tile pairs x 16 KB), 0.20 ms at 3.35 TB/s and 335 MB of scratch,
+//     against 0.065 ms for the recompute (2048 x 10 x 2 x 64^3 flops x 3 at
+//     the 495 TF/s TF32 peak).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -99,6 +146,9 @@ constexpr int kP = 64;        // head_dim, the one instance
 constexpr int kMaxQ = 512;
 constexpr int kThreads = 256;  // 8 warps; warp w owns rows 16 (w % 4).. of a 64-row tile
 constexpr int kLD = kT + 4;    // rows of 64 floats in shared memory (= 4 mod 32)
+constexpr int kStages = 2;     // the ring of walked tiles
+constexpr int kS = 32;         // positions a ring stage holds
+constexpr int kLDS = kS + 4;   // rows of 32 floats in shared memory (= 4 mod 32)
 
 struct Shape {
   int Q, nC, nT, Qp;  // nT 64-row tiles cover the chunk; Qp rounds Q up to kR
@@ -110,12 +160,14 @@ struct Shape {
 // The tile of a 64 x W product that this thread's warp owns: rows row0 =
 // 16 (warp % 4).. and columns col0 = (W / 2) (warp / 4).., as W / 16
 // accumulator fragments of 16 x 8 (element e of fragment t: row row0 + gq +
-// 8 (e / 2), column col0 + 8 t + 2 tq + e % 2).
+// 8 (e / 2), column col0 + 8 t + 2 tq + e % 2); or the tile at (r0, c0).
 struct Tile {
   int row0, col0, gq, tq;
   __device__ __forceinline__ explicit Tile(int W)
       : row0(16 * ((threadIdx.x / 32) % 4)), col0((W / 2) * (threadIdx.x / 128)),
         gq((threadIdx.x % 32) / 4), tq(threadIdx.x % 4) {}
+  __device__ __forceinline__ Tile(int r0, int c0)
+      : row0(r0), col0(c0), gq((threadIdx.x % 32) / 4), tq(threadIdx.x % 4) {}
   __device__ __forceinline__ int row(int e) const { return row0 + gq + 8 * (e / 2); }
   __device__ __forceinline__ int col(int t, int e) const { return col0 + 8 * t + 2 * tq + e % 2; }
 };
@@ -124,14 +176,14 @@ struct Tile {
 // 3xTF32, with A(i, k) = A[i * a_i + k * a_k] and B(k, j) = Bm[k * b_k + j *
 // b_j] in shared memory; `kRound` sums each k-step from zero and rounds it
 // into acc (see mma3_rounded), for a product whose error dcum's cancelling
-// sums would carry.
-template <int NT, bool kRound>
+// sums would carry; `kUnroll` k-steps are unrolled.
+template <int NT, bool kRound, int kUnroll = 2>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const Tile& t, const float* A,
                                          int a_i, int a_k, const float* Bm, int b_k, int b_j,
                                          int K) {
   const float* a0 = A + (t.row0 + t.gq) * a_i + t.tq * a_k;
   const float* b0 = Bm + t.tq * b_k + (t.col0 + t.gq) * b_j;
-#pragma unroll 2
+#pragma unroll kUnroll
   for (int k0 = 0; k0 < K; k0 += 8) {
     const float* ar = a0 + k0 * a_k;
     Frag af;
@@ -158,42 +210,85 @@ __device__ __forceinline__ float lane_sum(float v) {
   return v;
 }
 
-// Rows [0, rows) x columns [0, cols) of a row-major fp32 source (rows
-// `ld_src` elements apart) into dst (rows `ld` floats apart); rows at or
-// past `valid` are zero-filled.  With `vec` (source and row stride 16-byte
-// aligned) 16 bytes at a time.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from global to shared memory, asynchronously; zeros when !ok
+// (the source is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's copies but the newest N groups have landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues the copy of rows [0, rows) x columns [0, cols) of a row-major fp32
+// source (rows `ld_src` elements apart) into dst (rows `ld` floats apart);
+// rows at or past `valid` are zero-filled.  With `vec` (source and row
+// stride 16-byte aligned) 16 bytes a copy, else 4.
 __device__ __forceinline__ void stage(float* dst, int ld, const float* src, long long ld_src,
                                       int rows, int valid, int cols, bool vec) {
   if (vec) {
     const int per = cols / 4;
     for (int idx = threadIdx.x; idx < rows * per; idx += kThreads) {
       const int r = idx / per, c = (idx % per) * 4;
-      *reinterpret_cast<float4*>(dst + r * ld + c) =
-          r < valid ? *reinterpret_cast<const float4*>(src + r * ld_src + c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      const bool ok = r < valid;
+      cp_async16(dst + r * ld + c, ok ? src + r * ld_src + c : src, ok);
     }
   } else {
     for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
       const int r = idx / cols, c = idx % cols;
-      dst[r * ld + c] = r < valid ? src[r * ld_src + c] : 0.f;
+      const bool ok = r < valid;
+      cp_async4(dst + r * ld + c, ok ? src + r * ld_src + c : src, ok);
     }
   }
 }
 
+// Issues the copy of cum[0, n) (zeros at or past `valid`).
+__device__ __forceinline__ void stage_cum(float* dst, const float* cum, int n, int valid) {
+  for (int i = threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, i < valid ? cum + i : cum, i < valid);
+}
+
+// Lands every copy this thread issued, then the block's.
+__device__ __forceinline__ void land() {
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------- pass 1
 // One block per (head, chunk, b): dprev[p, n] = sum_i e_i dy[i, p] C[i, n],
-// 64 rows of the chunk a step.
+// 64 rows of the chunk a ring stage.
 template <int N>
-constexpr int dprev_smem_floats() {
-  return kT * kLD + kT * (N + 4);
+__host__ __device__ constexpr int dprev_stage_floats() {  // dy_i, C_i, cum_i
+  return kT * kLD + kT * (N + 4) + kT;
 }
 
 template <int N>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_dprev_kernel(const SsdBwdArgs a) {
+__host__ __device__ constexpr int dprev_smem_floats() {
+  return kStages * dprev_stage_floats<N>();
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_dprev_kernel(const SsdBwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LDN = N + 4;
-  float* s_dy = smem;            // [kT][kLD], rows scaled by e_i
-  float* s_c = smem + kT * kLD;  // [kT][LDN]
   const Shape sh(a);
   int blk = blockIdx.x;
   const int h = blk % a.heads;
@@ -204,17 +299,30 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_dprev_kernel(const SsdBwdArg
   const float* dyp = a.dy + b * a.dy_s[0] + s0 * a.dy_s[1] + h * a.dy_s[2];
   const float* cp = a.C + b * a.c_s[0] + s0 * a.c_s[1] + g * a.c_s[2];
   const float* cum = a.cum + (static_cast<long long>(b * a.heads + h) * sh.nC + c) * sh.Q;
+  // stage k: rows 64 k.. in ring slot k % kStages: dy [kT][kLD], C [kT][LDN], cum
+  auto issue = [&](int k) {
+    if (k < sh.nT) {
+      float* s_dy = smem + (k % kStages) * dprev_stage_floats<N>();
+      const int i0 = k * kT, rows = min(kT, sh.Q - i0);
+      stage(s_dy, kLD, dyp + i0 * a.dy_s[1], a.dy_s[1], kT, rows, kP, a.vec);
+      stage(s_dy + kT * kLD, LDN, cp + i0 * a.c_s[1], a.c_s[1], kT, rows, N, a.vec);
+      stage_cum(s_dy + kT * kLD + kT * LDN, cum + i0, kT, rows);
+    }
+    cp_async_commit();
+  };
   const Tile t(N);
   float acc[N / 16][4];
   zero(acc);
-  for (int i0 = 0; i0 < sh.Q; i0 += kT) {
-    const int rows = min(kT, sh.Q - i0);
-    __syncthreads();  // the previous tile's reads are done
-    stage(s_dy, kLD, dyp + i0 * a.dy_s[1], a.dy_s[1], kT, rows, kP, a.vec);
-    stage(s_c, LDN, cp + i0 * a.c_s[1], a.c_s[1], kT, rows, N, a.vec);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < rows * kP; idx += kThreads)
-      s_dy[(idx / kP) * kLD + idx % kP] *= expf(cum[i0 + idx / kP]);
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < sh.nT; ++k) {
+    float* s_dy = smem + (k % kStages) * dprev_stage_floats<N>();  // rows scaled by e_i
+    const float* s_c = s_dy + kT * kLD;
+    const float* s_cum = s_c + kT * LDN;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage k has landed; the stage it replaces is read
+    issue(k + kStages - 1);
+    for (int idx = threadIdx.x; idx < kT * kP; idx += kThreads)
+      s_dy[(idx / kP) * kLD + idx % kP] *= expf(s_cum[idx / kP]);
     __syncthreads();
     warp_mma<N / 16, false>(acc, t, s_dy, 1, kLD, s_c, LDN, 1, kT);  // (dy o e)^T C
   }
@@ -248,44 +356,53 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_carry_kernel(const SsdBwdArg
 
 // ---------------------------------------------------------------- passes 3, 4
 // The warp's part of the tile of dS = dy_I x_J^T for rows I0.. and keys J0..
-// of a chunk, in place in `dS`, and its masked forms written to shared
-// memory: s_S = C B^T o L (read from s_S, which holds the tile of C B^T, in
-// place; when `with_s`) and s_dM = dS o L; dS itself becomes T = dS o S.
-// Each is 0 where i < j or past the chunk.
-__device__ __forceinline__ void intra_tile(float (&dS)[4][4], const Tile& t, float* s_S,
-                                           float* s_dM, const float* s_dy, const float* s_x,
-                                           const float* s_cum_i, const float* s_cum_j, int I0,
-                                           int J0, int Q, bool with_s) {
+// of a chunk (rows of s_dy, keys of s_x, both [.][kLD]), in place in `dS`,
+// and its masked forms written to shared memory (rows `ld` floats apart):
+// s_S = C B^T o L (read from s_S, which holds the tile of C B^T, in place;
+// when `with_s`) and s_dM = dS o L; dS itself becomes T = dS o S.  Each is 0
+// where i < j or past the chunk.
+template <int NT>
+__device__ __forceinline__ void intra_tile(float (&dS)[NT][4], const Tile& t, float* s_S,
+                                           float* s_dM, int ld, const float* s_dy,
+                                           const float* s_x, const float* s_cum_i,
+                                           const float* s_cum_j, int I0, int J0, int Q,
+                                           bool with_s) {
   zero(dS);
-  warp_mma<4, true>(dS, t, s_dy, kLD, 1, s_x, 1, kLD, kP);
+  warp_mma<NT, true>(dS, t, s_dy, kLD, 1, s_x, 1, kLD, kP);
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < NT; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = t.row(e), j = t.col(n, e);
       const bool ok = I0 + i >= J0 + j && I0 + i < Q;
       const float L = ok ? expf(s_cum_i[i] - s_cum_j[j]) : 0.f;
-      const float S = ok ? s_S[i * kLD + j] * L : 0.f;
-      if (with_s) s_S[i * kLD + j] = S;
-      s_dM[i * kLD + j] = ok ? dS[n][e] * L : 0.f;
+      const float S = ok ? s_S[i * ld + j] * L : 0.f;
+      if (with_s) s_S[i * ld + j] = S;
+      s_dM[i * ld + j] = ok ? dS[n][e] * L : 0.f;
       dS[n][e] = ok ? dS[n][e] * S : 0.f;
     }
   }
 }
 
 template <int N>
-constexpr int dx_smem_floats() {
-  // x_J, dy_I, C B^T / S, dM, B_J, C_I (dstate after the loop, over dy_I and
-  // on), cum_J, cum_I, w, the column sums' 4 x 64 partials
-  return 4 * kT * kLD + 2 * kT * (N + 4) + 3 * kT + 4 * kT;
+__host__ __device__ constexpr int dx_stage_floats() {  // C B^T / S, dy_I, C_I, cum_I
+  return 2 * kS * kLD + kS * (N + 4) + kS;
+}
+
+template <int N>
+__host__ __device__ constexpr int dx_smem_floats() {
+  // x_J, dM, the ring (B_J and dstate after the walk), cum_J, w, the column
+  // sums' 4 x 64 partials
+  return kT * kLD + kS * kLD + kStages * dx_stage_floats<N>() + 2 * kT + 4 * kT;
 }
 
 // One block per (key tile J, head, chunk, b), the tiles with the most row
-// tiles first; walks the row tiles I >= J.
+// tiles first; walks the rows I >= J0, kS a ring stage.
 template <int N>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_dx_kernel(const SsdBwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_dx_kernel(const SsdBwdArgs a) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int LDN = N + 4, NB = N / 16;
+  constexpr int LDN = N + 4, NB = N / 16, N64 = kT / 16;
+  static_assert(2 * kT * LDN <= kStages * dx_stage_floats<N>(), "B_J and dstate fit the ring");
   const Shape sh(a);
   int blk = blockIdx.x;
   const int jt = blk % sh.nT;
@@ -295,16 +412,13 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_dx_kernel(const SsdBwdArgs a
   const int c = blk % sh.nC, b = blk / sh.nC;
   const int g = h / (a.heads / a.groups);
   float* s_x = smem;                  // [kT][kLD]
-  float* s_S = s_x + kT * kLD;        // [kT][kLD]: C B^T, then S
-  float* s_dM = s_S + kT * kLD;       // [kT][kLD]
-  float* s_b = s_dM + kT * kLD;       // [kT][LDN]
-  float* s_dy = s_b + kT * LDN;       // [kT][kLD]
-  float* s_c = s_dy + kT * kLD;       // [kT][LDN]
-  float* s_cum_j = s_c + kT * LDN;    // [kT]
-  float* s_cum_i = s_cum_j + kT;
-  float* s_w = s_cum_i + kT;
+  float* s_dM = s_x + kT * kLD;       // [kS][kLD]
+  float* ring = s_dM + kS * kLD;      // kStages x (s_S, s_dy, s_c, s_cum_i)
+  float* s_cum_j = ring + kStages * dx_stage_floats<N>();  // [kT]
+  float* s_w = s_cum_j + kT;
   float* s_red = s_w + kT;            // [4][kT]
-  float* s_ds = s_dy;                 // [kP][LDN] after the loop, over s_dy and s_c
+  float* s_b = ring;                  // [kT][LDN] after the walk
+  float* s_ds = ring + kT * LDN;      // [kP][LDN] after the walk
 
   const int J0 = jt * kT, rows_j = min(kT, sh.Q - J0);
   const long long s0 = static_cast<long long>(c) * sh.Q;
@@ -316,69 +430,92 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_dx_kernel(const SsdBwdArgs a
   const float* cum = a.cum + bhc;
   const float* cbp = a.cb + (static_cast<long long>(b * sh.nC + c) * a.groups + g) * sh.Qp * sh.Qp;
   const float cum_last = cum[sh.Q - 1];
+  const int n_steps = (sh.Q - J0 + kS - 1) / kS;
+  // stage k: rows I0 = J0 + kS k.. in ring slot k % kStages
+  auto issue = [&](int k) {
+    if (k < n_steps) {
+      float* slot = ring + (k % kStages) * dx_stage_floats<N>();
+      const int I0 = J0 + k * kS, rows_i = min(kS, sh.Q - I0);
+      stage(slot, kLD, cbp + static_cast<long long>(I0) * sh.Qp + J0, sh.Qp, kS, kS, kT, true);
+      stage(slot + kS * kLD, kLD, dyp + I0 * a.dy_s[1], a.dy_s[1], kS, rows_i, kP, a.vec);
+      stage(slot + 2 * kS * kLD, LDN, cp + I0 * a.c_s[1], a.c_s[1], kS, rows_i, N, a.vec);
+      stage_cum(slot + 2 * kS * kLD + kS * LDN, cum + I0, kS, rows_i);
+    }
+    cp_async_commit();
+  };
 
   stage(s_x, kLD, xp + J0 * a.x_s[1], a.x_s[1], kT, rows_j, kP, a.vec);
-  stage(s_b, LDN, bp + J0 * a.b_s[1], a.b_s[1], kT, rows_j, N, a.vec);
+  for (int k = 0; k < kStages - 1; ++k) issue(k);  // the first with x_J
   for (int j = threadIdx.x; j < kT; j += kThreads) {
     s_cum_j[j] = j < rows_j ? cum[J0 + j] : 0.f;
     s_w[j] = j < rows_j ? expf(cum_last - cum[J0 + j]) : 0.f;
   }
-  const Tile t64(kT), tN(N);
-  float acc_dx[4][4], acc_db[NB][4];
+  // dy x^T's kS x 64 tile: warp w owns rows 16 (w % 2).. and keys 16 (w / 2)..
+  const Tile tS(16 * ((threadIdx.x / 32) % 2), 16 * (threadIdx.x / 64)), t64(kT), tN(N);
+  float acc_dx[N64][4], acc_db[NB][4];
   zero(acc_dx);
   zero(acc_db);
   float col = 0.f;  // -colsum(dS o S) of key J0 + threadIdx.x (threads < kT)
-  for (int it = jt; it < sh.nT; ++it) {
-    const int I0 = it * kT, rows_i = min(kT, sh.Q - I0);
-    __syncthreads();  // the previous tile's reads are done
-    stage(s_dy, kLD, dyp + I0 * a.dy_s[1], a.dy_s[1], kT, rows_i, kP, a.vec);
-    stage(s_c, LDN, cp + I0 * a.c_s[1], a.c_s[1], kT, rows_i, N, a.vec);
-    stage(s_S, kLD, cbp + static_cast<long long>(I0) * sh.Qp + J0, sh.Qp, kT, kT, kT, true);
-    for (int i = threadIdx.x; i < kT; i += kThreads) s_cum_i[i] = i < rows_i ? cum[I0 + i] : 0.f;
-    __syncthreads();
-    float T[4][4];
-    intra_tile(T, t64, s_S, s_dM, s_dy, s_x, s_cum_i, s_cum_j, I0, J0, sh.Q, true);
-    // column sums of T: over the warp's 16 rows, then its 4 row warps in order
+  for (int k = 0; k < n_steps; ++k) {
+    const int I0 = J0 + k * kS;
+    float* s_S = ring + (k % kStages) * dx_stage_floats<N>();  // C B^T, then S
+    const float* s_dy = s_S + kS * kLD;
+    const float* s_c = s_dy + kS * kLD;
+    const float* s_cum_i = s_c + kS * LDN;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage k has landed; the stage it replaces is read
+    issue(k + kStages - 1);
+    float T[2][4];
+    intra_tile(T, tS, s_S, s_dM, kLD, s_dy, s_x, s_cum_i, s_cum_j, I0, J0, sh.Q, true);
+    // column sums of T: over the warp's 16 rows, then its 2 row warps in order
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < 2; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float v = lane_sum<16, 4>(T[n][e] + T[n][e + 2]);
-        if (t64.gq == 0) s_red[(t64.row0 / 16) * kT + t64.col(n, e)] = v;
+        if (tS.gq == 0) s_red[(tS.row0 / 16) * kT + tS.col(n, e)] = v;
       }
     }
     __syncthreads();
     if (threadIdx.x < kT)
-      for (int w = 0; w < 4; ++w) col -= s_red[w * kT + threadIdx.x];
-    warp_mma<4, false>(acc_dx, t64, s_S, 1, kLD, s_dy, kLD, 1, kT);   // S^T dy
-    warp_mma<NB, false>(acc_db, tN, s_dM, 1, kLD, s_c, LDN, 1, kT);   // dM^T C
+      for (int w = 0; w < 2; ++w) col -= s_red[w * kT + threadIdx.x];
+    warp_mma<N64, false>(acc_dx, t64, s_S, 1, kLD, s_dy, kLD, 1, kS);   // S^T dy
+    // dM^T C, at N 128 one k-step at a time: 128 registers hold no more
+    warp_mma<NB, false, N == 128 ? 1 : 2>(acc_db, tN, s_dM, 1, kLD, s_c, LDN, 1, kS);
   }
-  __syncthreads();
-  // the state terms, with g = dstate of this chunk in shared memory
+  __syncthreads();  // the walk's reads are done
+  // the state terms, with B_J and g = dstate of this chunk in shared memory
   const long long st = ((static_cast<long long>(b) * sh.nC + c) * a.heads + h) * kP * N;
+  stage(s_b, LDN, bp + J0 * a.b_s[1], a.b_s[1], kT, rows_j, N, a.vec);
   stage(s_ds, LDN, a.dstate + st, N, kP, kP, N, true);
-  __syncthreads();
+  land();
   {
-    float bg[4][4];  // (B g^T)[j, p]
+    float bg[N64][4];  // (B g^T)[j, p]
     zero(bg);
-    warp_mma<4, false>(bg, t64, s_b, LDN, 1, s_ds, 1, LDN, N);
+    warp_mma<N64, false>(bg, t64, s_b, LDN, 1, s_ds, 1, LDN, N);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < N64; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc_dx[n][e] = fmaf(s_w[t64.row(e)], bg[n][e], acc_dx[n][e]);
   }
-  float xg[NB][4];  // (x g)[j, n]
-  zero(xg);
-  warp_mma<NB, false>(xg, tN, s_x, kLD, 1, s_ds, LDN, 1, kP);
+  // (x g)[j, n], in two halves of the warp's columns (fewer live registers)
+  constexpr int NH = NB / 2;
   float dwp[2] = {0.f, 0.f};  // sum_n B[j, n] (w_j (x g)[j, n]) over this thread's columns
 #pragma unroll
-  for (int n = 0; n < NB; ++n) {
+  for (int half = 0; half < 2; ++half) {
+    const Tile th(tN.row0, tN.col0 + 8 * NH * half);
+    float xg[NH][4];
+    zero(xg);
+    warp_mma<NH, false>(xg, th, s_x, kLD, 1, s_ds, LDN, 1, kP);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = tN.row(e);
-      const float v = s_w[j] * xg[n][e];
-      acc_db[n][e] += v;
-      dwp[e / 2] = fmaf(s_b[j * LDN + tN.col(n, e)], v, dwp[e / 2]);
+    for (int n = 0; n < NH; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = th.row(e);
+        const float v = s_w[j] * xg[n][e];
+        acc_db[NH * half + n][e] += v;
+        dwp[e / 2] = fmaf(s_b[j * LDN + th.col(n, e)], v, dwp[e / 2]);
+      }
     }
   }
 #pragma unroll
@@ -394,7 +531,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_dx_kernel(const SsdBwdArgs a
     if (j >= rows_j) continue;
     float* dxr = a.dx + (row0 + static_cast<long long>(j) * a.heads) * kP;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < N64; ++n)
       *reinterpret_cast<float2*>(dxr + t64.col(n, 0)) =
           make_float2(acc_dx[n][2 * r], acc_dx[n][2 * r + 1]);
   }
@@ -433,18 +570,24 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_dx_kernel(const SsdBwdArgs a
 }
 
 template <int N>
-constexpr int dc_smem_floats() {
-  // dy_I, x_J, C B^T / dM, B_J, C_I (prev after the loop, over x_J and on),
-  // cum_I, cum_J, the row sums' 2 x 64 partials
-  return 3 * kT * kLD + 2 * kT * (N + 4) + 2 * kT + 2 * kT;
+__host__ __device__ constexpr int dc_stage_floats() {  // C B^T / dM, x_J, B_J, cum_J
+  return kT * kLDS + kS * kLD + kS * (N + 4) + kS;
+}
+
+template <int N>
+__host__ __device__ constexpr int dc_smem_floats() {
+  // dy_I, the ring (prev and C_I after the walk), cum_I, the row sums' 2 x
+  // 64 partials
+  return kT * kLD + kStages * dc_stage_floats<N>() + kT + 2 * kT;
 }
 
 // One block per (row tile I, head, chunk, b), the tiles with the most key
-// tiles first; walks the key tiles J <= I.
+// tiles first; walks the keys J <= I, kS a ring stage.
 template <int N>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_dc_kernel(const SsdBwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_dc_kernel(const SsdBwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LDN = N + 4, NB = N / 16;
+  static_assert(2 * kT * LDN <= kStages * dc_stage_floats<N>(), "prev and C_I fit the ring");
   const Shape sh(a);
   int blk = blockIdx.x;
   const int it = sh.nT - 1 - blk % sh.nT;
@@ -454,14 +597,11 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_dc_kernel(const SsdBwdArgs a
   const int c = blk % sh.nC, b = blk / sh.nC;
   const int g = h / (a.heads / a.groups);
   float* s_dy = smem;                 // [kT][kLD]
-  float* s_M = s_dy + kT * kLD;       // [kT][kLD]: C B^T, then dM
-  float* s_c = s_M + kT * kLD;        // [kT][LDN], staged after the loop
-  float* s_x = s_c + kT * LDN;        // [kT][kLD]
-  float* s_b = s_x + kT * kLD;        // [kT][LDN]
-  float* s_cum_i = s_b + kT * LDN;    // [kT]
-  float* s_cum_j = s_cum_i + kT;
-  float* s_red = s_cum_j + kT;        // [2][kT]
-  float* s_prev = s_x;                // [kP][LDN] after the loop, over s_x and s_b
+  float* ring = s_dy + kT * kLD;      // kStages x (s_M, s_x, s_b, s_cum_j)
+  float* s_cum_i = ring + kStages * dc_stage_floats<N>();  // [kT]
+  float* s_red = s_cum_i + kT;        // [2][kT]
+  float* s_prev = ring;               // [kP][LDN] after the walk
+  float* s_c = ring + kP * LDN;       // [kT][LDN] after the walk
 
   const int I0 = it * kT, rows_i = min(kT, sh.Q - I0);
   const long long s0 = static_cast<long long>(c) * sh.Q;
@@ -472,43 +612,59 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_dc_kernel(const SsdBwdArgs a
   const long long bhc = (static_cast<long long>(b * a.heads + h) * sh.nC + c) * sh.Q;
   const float* cum = a.cum + bhc;
   const float* cbp = a.cb + (static_cast<long long>(b * sh.nC + c) * a.groups + g) * sh.Qp * sh.Qp;
+  const int n_steps = (min(I0 + kT, sh.Q) + kS - 1) / kS;
+  // stage k: keys J0 = kS k.. in ring slot k % kStages
+  auto issue = [&](int k) {
+    if (k < n_steps) {
+      float* slot = ring + (k % kStages) * dc_stage_floats<N>();
+      const int J0 = k * kS, rows_j = min(kS, sh.Q - J0);
+      stage(slot, kLDS, cbp + static_cast<long long>(I0) * sh.Qp + J0, sh.Qp, kT, kT, kS, true);
+      stage(slot + kT * kLDS, kLD, xp + J0 * a.x_s[1], a.x_s[1], kS, rows_j, kP, a.vec);
+      stage(slot + kT * kLDS + kS * kLD, LDN, bp + J0 * a.b_s[1], a.b_s[1], kS, rows_j, N, a.vec);
+      stage_cum(slot + kT * kLDS + kS * kLD + kS * LDN, cum + J0, kS, rows_j);
+    }
+    cp_async_commit();
+  };
 
   stage(s_dy, kLD, dyp + I0 * a.dy_s[1], a.dy_s[1], kT, rows_i, kP, a.vec);
-  for (int i = threadIdx.x; i < kT; i += kThreads) s_cum_i[i] = i < rows_i ? cum[I0 + i] : 0.f;
-  const Tile t64(kT), tN(N);
+  stage_cum(s_cum_i, cum + I0, kT, rows_i);
+  for (int k = 0; k < kStages - 1; ++k) issue(k);  // the first with dy_I and cum_I
+  // dy x^T's 64 x kS tile: warp w owns rows 16 (w % 4).. and keys 16 (w / 4)..
+  const Tile tS(16 * ((threadIdx.x / 32) % 4), 16 * (threadIdx.x / 128)), tN(N);
   float acc[NB][4];
   zero(acc);
   float row = 0.f;  // rowsum(dS o S) of row I0 + threadIdx.x (threads < kT)
-  for (int jt = 0; jt <= it; ++jt) {
-    const int J0 = jt * kT, rows_j = min(kT, sh.Q - J0);
-    __syncthreads();  // the previous tile's reads are done
-    stage(s_x, kLD, xp + J0 * a.x_s[1], a.x_s[1], kT, rows_j, kP, a.vec);
-    stage(s_b, LDN, bp + J0 * a.b_s[1], a.b_s[1], kT, rows_j, N, a.vec);
-    stage(s_M, kLD, cbp + static_cast<long long>(I0) * sh.Qp + J0, sh.Qp, kT, kT, kT, true);
-    for (int j = threadIdx.x; j < kT; j += kThreads) s_cum_j[j] = j < rows_j ? cum[J0 + j] : 0.f;
-    __syncthreads();
+  for (int k = 0; k < n_steps; ++k) {
+    const int J0 = k * kS;
+    float* s_M = ring + (k % kStages) * dc_stage_floats<N>();  // C B^T, then dM
+    const float* s_x = s_M + kT * kLDS;
+    const float* s_b = s_x + kS * kLD;
+    const float* s_cum_j = s_b + kS * LDN;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage k has landed; the stage it replaces is read
+    issue(k + kStages - 1);
     // s_M holds C B^T: each thread reads its entries before it writes dM over them
-    float T[4][4];
-    intra_tile(T, t64, s_M, s_M, s_dy, s_x, s_cum_i, s_cum_j, I0, J0, sh.Q, false);
-    // row sums of T: over the warp's 32 columns, then its 2 column warps in order
+    float T[2][4];
+    intra_tile(T, tS, s_M, s_M, kLDS, s_dy, s_x, s_cum_i, s_cum_j, I0, J0, sh.Q, false);
+    // row sums of T: over the warp's 16 keys, then its 2 key warps in order
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float v = 0.f;
 #pragma unroll
-      for (int n = 0; n < 4; ++n) v += T[n][2 * r] + T[n][2 * r + 1];
+      for (int n = 0; n < 2; ++n) v += T[n][2 * r] + T[n][2 * r + 1];
       v = lane_sum<2, 1>(v);
-      if (t64.tq == 0) s_red[(t64.col0 ? kT : 0) + t64.row(2 * r)] = v;
+      if (tS.tq == 0) s_red[(tS.col0 / 16) * kT + tS.row(2 * r)] = v;
     }
     __syncthreads();
     if (threadIdx.x < kT) row += s_red[threadIdx.x] + s_red[kT + threadIdx.x];
-    warp_mma<NB, false>(acc, tN, s_M, kLD, 1, s_b, LDN, 1, kT);  // dM B
+    warp_mma<NB, false>(acc, tN, s_M, kLDS, 1, s_b, LDN, 1, kS);  // dM B
   }
-  __syncthreads();
+  __syncthreads();  // the walk's reads are done
   // the state term: (dy o e) prev, with prev of this chunk in shared memory
   const long long st = ((static_cast<long long>(b) * sh.nC + c) * a.heads + h) * kP * N;
   stage(s_prev, LDN, a.prev + st, N, kP, kP, N, true);
   stage(s_c, LDN, cp + I0 * a.c_s[1], a.c_s[1], kT, rows_i, N, a.vec);
-  __syncthreads();
+  land();
   float dp[NB][4];
   zero(dp);
   warp_mma<NB, false>(dp, tN, s_dy, kLD, 1, s_prev, LDN, 1, kP);
@@ -600,6 +756,16 @@ unsigned blocks(long long threads) {
 }
 
 template <int N>
+int smem_bytes(int pass) {
+  switch (pass) {
+    case kDprev: return dprev_smem_floats<N>() * static_cast<int>(sizeof(float));
+    case kDx: return dx_smem_floats<N>() * static_cast<int>(sizeof(float));
+    case kDc: return dc_smem_floats<N>() * static_cast<int>(sizeof(float));
+    default: return 0;
+  }
+}
+
+template <int N>
 int launch(const SsdBwdArgs* a, int passes) {
   const int Q = a->chunk, nC = a->seq / Q, nT = (Q + kT - 1) / kT;
   const long long bch = static_cast<long long>(a->batch) * nC * a->heads;
@@ -654,5 +820,15 @@ extern "C" int ssd_scan_bwd_launch(const SsdBwdArgs* a, int passes) {
     case 64: return launch<64>(a, passes);
     case 128: return launch<128>(a, passes);
     default: return -1;
+  }
+}
+
+// The dynamic shared memory, in bytes, of a block of a tensor pass (kDprev,
+// kDx or kDc) at d_state n; 0 for another pass or an n with no instance.
+extern "C" int ssd_scan_bwd_smem_bytes(int pass, int n) {
+  switch (n) {
+    case 64: return smem_bytes<64>(pass);
+    case 128: return smem_bytes<128>(pass);
+    default: return 0;
   }
 }

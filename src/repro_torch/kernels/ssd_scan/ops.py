@@ -46,6 +46,13 @@ _ALL = (1 << len(PASSES)) - 1
 #: the backward kernel's passes in order, likewise; it has fp32 instances only
 BWD_PASSES = ("dprev", "dcarry", "dx", "dc", "ddA", "fold")
 _BWD_ALL = (1 << len(BWD_PASSES)) - 1
+#: the backward's tensor-core passes; threads a block, positions a ring stage
+#: of dx and dc, ring stages, and the blocks an SM the design holds (kThreads,
+#: kS and kStages of the CUDA source; 2 x 8 warps)
+BWD_TENSOR_PASSES = ("dprev", "dx", "dc")
+BWD_THREADS, BWD_STEP, BWD_STAGES, BWD_BLOCKS_PER_SM = 256, 32, 2, 2
+#: shared memory a block may have, and an SM has, on an H100, in bytes
+BLOCK_SMEM, SM_SMEM = 232448, 233472
 
 _Strides = ctypes.c_longlong * 3
 
@@ -241,6 +248,32 @@ def _launch(ws: Workspace, passes: int) -> None:
     rc = _entry("ssd_scan", "ssd_scan_launch", SsdArgs)(ctypes.byref(a), passes)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (cudaError {rc})")
+
+
+def bwd_smem_bytes(name: str, n: int) -> int:
+    """The dynamic shared memory a block of backward pass ``name`` (one of
+    ``BWD_TENSOR_PASSES``) takes at d_state ``n``, in bytes: the sums of
+    ``dprev_smem_floats``, ``dx_smem_floats`` and ``dc_smem_floats`` in the
+    CUDA source, which ``ssd_scan_bwd_smem_bytes`` returns on the card.
+    Tiles are fp32 in rows padded by 4 floats."""
+    t, s, p, st = 64, BWD_STEP, HEAD_DIMS[0], BWD_STAGES
+    if name == "dprev":  # ring of 64-row stages (dy, C, cum)
+        floats = st * (t * (p + 4) + t * (n + 4) + t)
+    elif name == "dx":  # x_J, dM, ring (C B^T, dy, C, cum), cum_J, w, folds
+        floats = (t * (p + 4) + s * (p + 4)
+                  + st * (2 * s * (t + 4) + s * (n + 4) + s) + 6 * t)
+    elif name == "dc":  # dy_I, ring (C B^T, x, B, cum), cum_I, folds
+        floats = (t * (p + 4) + st * (t * (s + 4) + s * (p + 4) + s * (n + 4) + s)
+                  + 3 * t)
+    else:
+        raise ValueError(f"ssd: {name!r} is not one of {BWD_TENSOR_PASSES}")
+    return 4 * floats
+
+
+def bwd_blocks_per_sm(name: str, n: int) -> int:
+    """Blocks of backward pass ``name`` an H100 SM holds by their shared
+    memory (1 KB of the SM's reserved a block) and threads."""
+    return min(SM_SMEM // (bwd_smem_bytes(name, n) + 1024), 2048 // BWD_THREADS)
 
 
 def _check_bwd_kernel(x, B, C) -> None:

@@ -315,3 +315,25 @@ def test_sass_check_needs_tensor_cores_in_every_bf16_flash_kernel(monkeypatch, d
     else:
         with pytest.raises(AssertionError, match="SASS"):
             cs.check_tensor_cores(counts)
+
+
+@pytest.mark.parametrize("spill,ok", [(0, True), (48, False)])
+def test_build_check_refuses_a_spilling_backward(monkeypatch, tmp_path, spill, ok):
+    """The build phase reads ptxas's report for B4's backward (written beside
+    the library, on the card's machine) and fails if a kernel spills."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+
+    log = tmp_path / "libssd_scan_bwd.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_Z17ssd_bwd_dx_kernelILi128EEv' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n")
+    monkeypatch.setattr(build, "library_path", lambda name: tmp_path / f"lib{name}.so")
+    monkeypatch.setattr(cs, "log", lambda msg: None)
+    if ok:
+        cs.check_no_spills(build, "ssd_scan_bwd")
+    else:
+        with pytest.raises(AssertionError, match="spills"):
+            cs.check_no_spills(build, "ssd_scan_bwd")

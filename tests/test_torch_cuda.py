@@ -642,12 +642,18 @@ def test_ssd_kernel_refuses_gradients_and_missing_instances(cuda):
 
 
 # SSD backward: (B, S, H, P, N, G, initial state, dfinal) -- the card tests'
-# smoke shapes at both d_states, G 2, and an initial state with dfinal
+# smoke shapes at both d_states, G 2, and an initial state with dfinal; 16
+# chunks of 256, so that dx and dC walk 8 ring stages of 32 positions (4
+# tiles of 64) and the state pass walks 16 chunks, at both d_states; G 2 with
+# dfinal at N 128
 SSD_BWD_CASES = [
     (2, 512, 8, 64, 128, 1, False, False),
     (2, 512, 8, 64, 64, 1, False, False),
     (2, 512, 8, 64, 64, 2, True, True),
     (1, 1024, 4, 64, 128, 1, True, True),
+    (1, 4096, 4, 64, 64, 1, False, False),
+    (1, 4096, 4, 64, 128, 1, False, False),
+    (2, 512, 8, 64, 128, 2, False, True),
 ]
 
 
@@ -715,13 +721,18 @@ def test_ssd_backward_kernel_passes_match_plain(cuda, b, s, h, p, n, g, init, df
     for name in ops.BWD_PASSES:
         ops.run_pass(bw, name)
         for field, ref in ops.plain_pass(bw, name).items():
-            _close_grad(getattr(bw, field), ref, torch.float32)
+            out = getattr(bw, field)
+            _close_grad(out, ref, torch.float32)
+            first = out.clone()
+            ops.run_pass(bw, name)  # a pass reads no field it writes
+            assert torch.equal(getattr(bw, field), first), (name, field)
 
 
 def test_ssd_backward_kernel_unaligned_rows_match_plain(cuda):
-    """x and dy as views whose rows lie 65 elements apart, a ragged chunk of
-    100 (two 64-row tiles, the second partial), an initial state and
-    dfinal."""
+    """x and dy as views whose rows lie 65 elements apart (the 4-byte
+    cp.async path), a ragged chunk of 100 (two 64-row tiles, the second
+    partial; 32-position stages of 32, 32, 32 and 4), an initial state and
+    dfinal; two calls equal bit for bit."""
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
 
     x, dA, B_, C_, state = _ssd_inputs(cuda, 2, 300, 4, 64, 128, 1, torch.float32, True)
@@ -730,10 +741,43 @@ def test_ssd_backward_kernel_unaligned_rows_match_plain(cuda):
     dy = torch.randn(2, 300, 4, 65, generator=gen, device=cuda)[..., :64]
     dfinal = torch.randn(2, 4, 64, 128, generator=gen, device=cuda)
     got = _ssd_grads(x, dA, B_, C_, 100, state, dy, dfinal)
+    again = _ssd_grads(x, dA, B_, C_, 100, state, dy, dfinal)
     want = ssd_bwd_ref(x, dA, B_, C_, 100, state, dy, dfinal)
     torch.cuda.synchronize()
-    for gv, wv in zip(got, want):
+    for gv, av, wv in zip(got, again, want):
+        assert torch.equal(gv, av)
         _close_grad(gv, wv, torch.float32)
+
+
+@pytest.mark.parametrize("name", ["dprev", "dx", "dc"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_backward_shared_memory_matches_ops(cuda, name, n):
+    """The shared memory the backward's CUDA source gives a block of each
+    tensor pass is ops.bwd_smem_bytes's, the figure the CPU tests hold to
+    the design's blocks an SM."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import ops
+
+    fn = build.load("ssd_scan_bwd").ssd_scan_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    assert fn(1 << ops.BWD_PASSES.index(name), n) == ops.bwd_smem_bytes(name, n)
+
+
+def test_ssd_backward_kernels_do_not_spill(cuda):
+    """ptxas's report for every kernel of the backward: no spill stores or
+    loads, and no more registers than two blocks an SM leave a thread."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import ops
+
+    build.load("ssd_scan_bwd")
+    report = build.ptxas_report(build.library_path("ssd_scan_bwd").with_suffix(".log").read_text())
+    assert len(report) == 9, sorted(report)  # dprev, dx, dc at N 64 and 128; carry, dA, fold
+    limit = 65536 // (ops.BWD_BLOCKS_PER_SM * ops.BWD_THREADS)
+    for fn, (regs, spill_stores, spill_loads) in report.items():
+        assert spill_stores == 0 and spill_loads == 0, fn
+        assert regs <= limit, fn
 
 
 def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):

@@ -175,3 +175,33 @@ def test_build_passes_csrc_as_include_dir(tmp_path, monkeypatch):
     cmd = seen["cmd"]
     csrc = (build.KERNELS_DIR / build.SOURCES["flash_attention"]).parent
     assert cmd[cmd.index("-I") + 1] == str(csrc)
+
+
+PTXAS_LOG = """ptxas info    : Compiling entry function '_Z6kernelILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z6kernelILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi128EEvv
+    48 bytes stack frame, 48 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 48 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z4flatv' for 'sm_90a'
+ptxas info    : Function properties for _Z4flatv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+"""
+
+
+@pytest.mark.parametrize("fn,want", [
+    ("_Z6kernelILi64EEvv", (128, 0, 0)),
+    ("_Z6kernelILi128EEvv", (128, 48, 40)),
+    ("_Z4flatv", (30, 0, 0)),
+])
+def test_ptxas_report_reads_registers_and_spills(fn, want):
+    """The build log's ptxas report, kernel by kernel, as the spill checks
+    of chip_smoke.py and the card tests read it."""
+    from repro_torch.kernels import build
+
+    report = build.ptxas_report(PTXAS_LOG)
+    assert len(report) == 3
+    assert report[fn] == want

@@ -159,3 +159,31 @@ def test_ssd_autograd_function_on_cpu_runs_the_plain_backward(b, nc, h, p, n, g,
         loss = (y * _t(dy)).sum() + ((final * _t(df)).sum() if dfin else 0.0)
         (d_init,) = torch.autograd.grad(loss, (st_leaf,))
         _close("d_initial", d_init.numpy(), want[4])
+
+
+def _source_constant(name):
+    """A ``constexpr int`` of the backward's CUDA source."""
+    import re
+    from pathlib import Path
+
+    src = Path(ssd_ops.__file__).parent / "csrc" / "ssd_scan_bwd.cu"
+    m = re.search(rf"constexpr int {name} = (\d+);", src.read_text())
+    assert m, name
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("name", ["dprev", "dx", "dc"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_backward_shared_memory_fits_two_blocks_an_sm(name, n):
+    """ops' mirror of the backward's shared memory (the card test holds it to
+    the CUDA source's own figure) per tensor pass and d_state: within the
+    227 KB a block may have, and small enough that the design's 2 blocks of
+    8 warps (16 warps of tensor work) fit an SM's 228 KB; the threads, stage
+    positions and stages it counts with are the source's."""
+    assert ssd_ops.BWD_THREADS == _source_constant("kThreads")
+    assert ssd_ops.BWD_STEP == _source_constant("kS")
+    assert ssd_ops.BWD_STAGES == _source_constant("kStages") >= 2
+    smem = ssd_ops.bwd_smem_bytes(name, n)
+    assert smem <= ssd_ops.BLOCK_SMEM
+    assert ssd_ops.bwd_blocks_per_sm(name, n) >= ssd_ops.BWD_BLOCKS_PER_SM
+    assert ssd_ops.BWD_BLOCKS_PER_SM * ssd_ops.BWD_THREADS // 32 >= 16

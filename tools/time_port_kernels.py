@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
-"""Time the port's B2 (decode attention) and B3a (RMSNorm) kernels on one
-GPU at ``chip_smoke.py``'s phase 3 shapes, from any checkout of the port.
+"""Time the port's B2 (decode attention), B3a (RMSNorm) and B4-backward
+(SSD chunk scan VJP) kernels on one GPU at ``chip_smoke.py``'s phase 3
+shapes, from any checkout of the port.
 
-    python3 tools/time_port_kernels.py [--src DIR] [--sweep b2,fwd,bwd] [--out FILE]
+    python3 tools/time_port_kernels.py [--src DIR] [--kernels b2,b3a,b4bwd]
+                                       [--sweep b2,fwd,bwd] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (this
 checkout's by default; a parent commit unpacked elsewhere to compare two
 versions in one call).  Each case is timed through the public wrappers as
 phase 3 times it (CUDA events, median of 30 launches, the L2 cache flushed
-before each), beside SDPA or ``F.rms_norm``.  ``--sweep`` also times the
+before each), beside SDPA or ``F.rms_norm``.  ``--kernels`` picks what
+is timed (B2 and B3a by default); ``b4bwd`` times B4's backward whole and
+pass by pass at ``SSD_BWD_CASES`` (phase 11's training shapes) on the
+forward kernel's own scratch, with the max |error| of its dx and dC
+passes against their plain versions and the checkout's design constants
+(threads a block, positions a ring stage, stages, blocks an SM by shared
+memory; null where the checkout has none).  ``--sweep`` also times the
 kernels of this checkout under other launch shapes: B2 with the cache cut
 for 1-4 blocks an SM (``b2``), B3a's forward over rows per program and
 warps (``fwd``), its backward also over pipeline stages and programs per SM
@@ -87,6 +95,44 @@ def norm_inputs(torch, gen, rows, d):
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
     return rnd(rows, d, scale=3.0), rnd(d, scale=0.1), rnd(rows, d)
+
+
+def time_b4bwd(torch, timer, gen, emit):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops
+
+    design = dict(
+        threads=getattr(ops, "BWD_THREADS", None),
+        stage_positions=getattr(ops, "BWD_STEP", None),
+        stages=getattr(ops, "BWD_STAGES", None),
+        blocks_per_sm={f"{pn} N={n}": ops.bwd_blocks_per_sm(pn, n)
+                       for pn in ops.BWD_TENSOR_PASSES for n in ops.D_STATES}
+        if hasattr(ops, "bwd_blocks_per_sm") else None)
+    for label, b, s, h, p, n, g, chunk, init, dfin, _ in cs.SSD_BWD_CASES:
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device="cuda") * scale
+        x, dy, dA = rnd(b, s, h, p), rnd(b, s, h, p), -F.softplus(rnd(b, s, h))
+        bc = rnd(b, s, 2 * g * n, scale=0.5)
+        B_, C_ = bc[..., : g * n].view(b, s, g, n), bc[..., g * n:].view(b, s, g, n)
+        state = rnd(b, h, p, n) if init else None
+        dfinal = rnd(b, h, p, n) if dfin else None
+        ws = ops.workspace(x, dA, B_, C_, chunk, state)
+        for pn in ops.PASSES:
+            ops.run_pass(ws, pn)
+        bw = ops.bwd_workspace(ws, dy, dfinal)
+        err = {}
+        for pn in ops.BWD_PASSES:
+            ops.run_pass(bw, pn)
+            if pn in ("dx", "dc"):
+                for field, ref in ops.plain_pass(bw, pn).items():
+                    err[f"{pn}.{field}"] = (getattr(bw, field) - ref).abs().max().item()
+        ms = timer(lambda: [ops.run_pass(bw, pn) for pn in ops.BWD_PASSES])
+        passes = {pn: timer(lambda pn=pn: ops.run_pass(bw, pn)) for pn in ops.BWD_PASSES}
+        emit(kernel="B4 bwd", case=label, B=b, S=s, H=h, N=n, chunk=chunk, ms=ms,
+             passes_ms=passes, max_abs_err=err, design=design)
+        del ws, bw, x, dy, dA, bc, B_, C_
+        torch.cuda.empty_cache()
 
 
 def sweep_decode(torch, timer, gen, emit):
@@ -173,6 +219,7 @@ def sweep_rmsnorm(torch, timer, gen, emit, which):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--kernels", default="b2,b3a", help="comma-separated: b2, b3a, b4bwd")
     ap.add_argument("--sweep", default="", help="comma-separated: b2, fwd, bwd")
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -198,8 +245,13 @@ def main() -> int:
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    time_decode(torch, timer, gen, emit)
-    time_rmsnorm(torch, timer, gen, emit)
+    kernels = set(filter(None, args.kernels.split(",")))
+    if "b2" in kernels:
+        time_decode(torch, timer, gen, emit)
+    if "b3a" in kernels:
+        time_rmsnorm(torch, timer, gen, emit)
+    if "b4bwd" in kernels:
+        time_b4bwd(torch, timer, gen, emit)
     sweeps = set(filter(None, args.sweep.split(",")))
     if "b2" in sweeps:
         sweep_decode(torch, timer, gen, emit)
