@@ -23,9 +23,10 @@ Phases, each of which must pass (any failure exits non-zero):
                 and unaligned rows), which must also give the same bits
                 twice.  B2
                 logs its split plan (blocks a cluster, slots a block) and
-                torch.profiler must see one call run exactly one kernel.  B1's
-                phase 12 cases run the forward only, as their path does (and
-                on the card its backward must refuse G 48);
+                torch.profiler must see one call run exactly one kernel.
+                h2o-danube's phase 12 case runs the forward only, as its path
+                does; granite-34b's G 48 runs both ways at its serve and its
+                training shape (phase 13);
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -109,13 +110,22 @@ Phases, each of which must pass (any failure exits non-zero):
                 weights drawn on the card, 4 prompts of 256 plus 24 new.
                 Decode logits, recorded as the engine runs and at its next
                 step, are held against the teacher-forced forward (B1);
- 13. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+ 13. dense-train -- granite-34b at every published width (48/1 heads of 128:
+                B1 both ways at G 48; d_model 6144) cut to DENSE_TRAIN_LAYERS
+                of its 88 layers, its weights drawn on the card, trained on
+                phase 5's batch and schedule with every plain version refused
+                and the launches exact; then, cut to DENSE_REMAT_LAYERS, the
+                remat gradients must equal those without within one bf16 ulp
+                of each leaf's max, and at 1 layer in fp32 every gradient leaf
+                must be within SSM_PLAIN_GRAD_TOL of the plain versions';
+ 14. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
 served model; granite-moe's with its MoE layers' share), of one train step
-(granite-moe's with its MoE layers' share, and one MoE layer's forward and
-backward timed alone; each SSM model's with B4 forward and backward) and of
-one mamba2-370m prefill.
+of each trained model (granite-moe's with its MoE layers' share, and one MoE
+layer's forward and backward timed alone; each SSM model's with B4 forward
+and backward; granite-34b's with B1's backward split into its kernels) and
+of one mamba2-370m prefill.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -222,15 +232,18 @@ FLASH_CASES = [
     ("whisper cross", 8, (448, 1500), 20, 20, 64, False, None),
     # phase 12's teacher-forced forwards
     ("h2o-danube serve forward", 4, 544, 32, 8, 80, True, 4096),
-    ("granite-34b forward", 4, 280, 48, 1, 128, True, None),
+    ("granite-34b forward", 4, 280, 48, 1, 128, True, None),  # G 48, both ways
+    ("granite-34b train", 2, 8192, 48, 1, 128, True, None),  # phase 13's, G 48
 ]
 # cases whose path runs no backward: they are checked and timed forward only
-# (so is every case at a group that the backward has no instance for)
-FLASH_FORWARD_ONLY = ("h2o-danube serve forward", "granite-34b forward")
+FLASH_FORWARD_ONLY = ("h2o-danube serve forward",)
 FLASH_FP32_CASES = [
     ("fp32 ragged", 2, 300, 8, 2, 80, True, 128),
     ("fp32 non-causal", 1, 200, 4, 1, 256, False, None),
     ("fp32 G 48 ragged", 1, 100, 48, 1, 128, True, 64),
+    # granite-34b's serve and training shapes (phases 12 and 13)
+    ("fp32 granite-34b forward", 4, 280, 48, 1, 128, True, None),
+    ("fp32 granite-34b train", 2, 8192, 48, 1, 128, True, None),
 ]
 # RMSNorm forward: (rows, D).  gemma3-1b's width (4 rows: a decode step at
 # batch 4), then phase 6's: mamba2-370m's d_model 1024 and gate norm 2048,
@@ -251,14 +264,16 @@ RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
                  # decoder (8 x 448) and encoder (8 x 1500)
                  (4, 1280), (512, 1280), (6000, 1280), (3584, 1280), (12000, 1280),
                  # phase 12: a decode step and the teacher-forced forward of
-                 # h2o-danube-1.8b (4 x 544) and granite-34b (4 x 280)
-                 (4, 2560), (2176, 2560), (4, 6144), (1120, 6144)]
+                 # h2o-danube-1.8b (4 x 544) and granite-34b (4 x 280); phase
+                 # 13's granite-34b training batch (2 x 8192)
+                 (4, 2560), (2176, 2560), (4, 6144), (1120, 6144), (16384, 6144)]
 RMSNORM_RESIDUAL_CASES = [(4, 1152), (8, 1152), (4096, 1152)]
 # RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
 # step's, 2176 x 1152 gemma3-1b's forward; then phase 9's and phase 10's
-# training batches (whisper's decoder, then its encoder)
+# training batches (whisper's decoder, then its encoder), and phase 13's
+# (granite-34b's d_model 6144, whose fp32 rows fit 3 pipeline stages)
 RMSNORM_BWD_CASES = [(16384, 2560), (4, 2560), (2176, 1152),
-                     (16384, 1536), (3584, 1280), (12000, 1280)]
+                     (16384, 1536), (3584, 1280), (12000, 1280), (16384, 6144)]
 # decode attention: (label, B, slots, Hq, Hkv, D, window, position); the first
 # is gemma3-1b's SWA ring wrapped at the last position of the serve phase
 DECODE_CASES = [
@@ -330,6 +345,21 @@ DENSE_MODELS = [
 ]
 DENSE_BATCH, DENSE_MAX_LEN = 4, 1024
 
+# phase 13: DENSE_TRAIN_MODEL trained at every width on phase 5's batch and
+# schedule, its weights drawn on the card, cut to DENSE_TRAIN_LAYERS of its
+# 88 layers: at 4 layers its 2.72 B params (2.12 B in the layers, 0.60 B in
+# the untied embed and unembed) take 43.6 GB at 16 bytes a param (bf16
+# weights and gradients, fp32 masters, m and v), plus the remat activations
+# of 2 x 8192 tokens (a 49.7 GiB peak on the H100); each more layer adds
+# 8.5 GB, so 6 layers is the most that leaves room.  The cut is of depth only.  The remat check runs at DENSE_REMAT_LAYERS layers
+# (without remat every layer's activations stay live), the fp32 plain-version
+# check (SSM_PLAIN_GRAD_TOL) at 1 layer on DENSE_PLAIN_SEQ tokens of the
+# batch's first row
+DENSE_TRAIN_MODEL = "granite-34b"
+DENSE_TRAIN_LAYERS = 4
+DENSE_REMAT_LAYERS = 2
+DENSE_PLAIN_SEQ = 1024
+
 # phase 11: SSM_MODELS trained at every width and depth on train_4k's
 # sequence length (repro/configs/base.py), cut from its 256 sequences to 4
 # so that a step fits the run's time, on phase 5's schedule; the remat and
@@ -354,23 +384,37 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# a function whose first timed launch takes longer than LONG_MS (a plain
+# version at a training shape: 0.1-0.5 s) is timed over LONG_ITERS launches
+LONG_MS, LONG_ITERS = 50.0, 5
+
+
 class Timer:
-    """Per-launch device time with CUDA events; a 512 MiB buffer is
-    rewritten before every launch so that each finds the L2 cache cold, as
-    the serving path does (its weights stream through L2 between layers)."""
+    """Per-launch device time with CUDA events, the median of ``iters``
+    launches (LONG_ITERS for a function slower than LONG_MS); a 512 MiB
+    buffer is rewritten before every launch so that each finds the L2 cache
+    cold, as the serving path does (its weights stream through L2 between
+    layers)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(128 * 2**20, dtype=torch.int32, device=DEVICE)
 
     def __call__(self, fn, iters: int = 30, warmup: int = 3) -> float:
-        torch = self.torch
         for _ in range(warmup):
             fn()
-        sync(torch)
+        sync(self.torch)
+        probe = self.launches(fn, 1)
+        if probe[0] > LONG_MS:
+            return statistics.median(probe + self.launches(fn, LONG_ITERS - 1))
+        return statistics.median(self.launches(fn, iters))
+
+    def launches(self, fn, n: int) -> list:
+        """ms of each of ``n`` launches, enqueued back to back."""
+        torch = self.torch
         ev = [
             (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            for _ in range(iters)
+            for _ in range(n)
         ]
         for start, end in ev:
             self.flush.zero_()
@@ -378,7 +422,7 @@ class Timer:
             fn()
             end.record()
         sync(torch)
-        return statistics.median(s.elapsed_time(e) for s, e in ev)
+        return [s.elapsed_time(e) for s, e in ev]
 
 
 def bound_ms(n_bytes: float, flops: float, peak_flops: float):
@@ -734,21 +778,13 @@ def flash_cases(torch, timer, gen):
         q, k, v, dout = rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), rnd(b, sq, hq, d)
         name = (f"flash_attention {label} [{b},{sq if sq == sk else f'{sq}/{sk}'},{hq}/{hkv},{d}] "
                 f"causal={causal} window={window}")
-        no_bwd_group = hq // hkv not in ops.BWD_GROUPS
-        fwd_only = no_bwd_group or label in FLASH_FORWARD_ONLY
+        fwd_only = label in FLASH_FORWARD_ONLY
         out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
         f32 = [t.float() for t in (q, k, v, out, dout)]  # the same values in fp32
         kw = dict(causal=causal, window=window)
         ref, ref_lse = flash_attention_ref(*f32[:3], **kw)
         if fwd_only:
             grads = ref_grads = None
-            if no_bwd_group and DEVICE == "cuda":  # on the card the backward refuses it
-                try:
-                    ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
-                except NotImplementedError:
-                    pass
-                else:
-                    raise AssertionError(f"{name}: the backward took G {hq // hkv}")
         else:
             grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
             ref_grads = flash_attention_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw)
@@ -809,8 +845,7 @@ def flash_cases(torch, timer, gen):
         log(f"kernels: {name}: {4 * pairs * d / ms / 1e9:.1f} TFLOP/s forward "
             f"(4 x pairs x D / ms; sdpa {4 * pairs * d / lib / 1e9:.1f})")
         if fwd_only:
-            log(f"kernels: {name}: forward only (" + (
-                f"the backward has no G {hq // hkv})" if no_bwd_group else "no path runs its backward)"))
+            log(f"kernels: {name}: forward only (no path runs its backward)")
             if DEVICE == "cuda":
                 torch.cuda.empty_cache()
             continue
@@ -1474,7 +1509,8 @@ def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> f
             g = "B1 flash_attention forward (CUDA)"
         elif "flash_bwd" in name:
             part = ("dK/dV" if "dkv" in name else "dQ" if "_dq_" in name
-                    else "delta" if "delta" in name else "other")
+                    else "delta" if "delta" in name else "fold of the dK/dV parts"
+                    if "fold" in name else "other")
             g = f"B1 flash_attention backward, {part} (CUDA)"
         elif "ssd_bwd" in name:
             g = "B4 ssd_scan backward (CUDA)"
@@ -2418,7 +2454,7 @@ def phase_moe_train(torch, seed, smi, profile: bool = False):
 
 
 # ------------------------------------------------------------ phase 11
-def ssm_grads(torch, api, params, batch, remat: bool):
+def loss_grads(torch, api, params, batch, remat: bool):
     """(loss, the gradient of every param leaf) of ``loss_fn``."""
     from repro_torch.checkpoint import flatten_tree
 
@@ -2428,16 +2464,41 @@ def ssm_grads(torch, api, params, batch, remat: bool):
     return float(loss.detach()), grads
 
 
+def plain_grad_check(torch, api, params, batch, what: str):
+    """Every gradient leaf of ``loss_fn`` (remat) through the kernels, every
+    plain version refused, within SSM_PLAIN_GRAD_TOL of its max |g| of the
+    same loss through the plain versions on the card
+    (``plain_versions_on_card``); ``api`` is an fp32 config.  Returns (the
+    worst ratio, its leaf, the loss through the kernels, through the plain
+    versions)."""
+    from repro_torch.checkpoint import flatten_tree
+
+    paths = [path for path, _ in flatten_tree(params)]
+    with plain_versions_forbidden():
+        loss_k, grads_k = loss_grads(torch, api, params, batch, remat=True)
+    with plain_versions_on_card():
+        loss_p, grads_p = loss_grads(torch, api, params, batch, remat=True)
+    worst, worst_path = 0.0, None
+    for path, g, h in zip(paths, grads_k, grads_p):
+        diff = (g - h).abs().max().item()
+        scale = h.abs().max().item()
+        ratio = diff / scale if scale > 0 else diff
+        if ratio >= worst:
+            worst, worst_path = ratio, path
+        if not math.isfinite(diff) or diff > SSM_PLAIN_GRAD_TOL * scale:
+            raise AssertionError(f"{what}: {path} gradient through the kernels differs by "
+                                 f"{diff:.3e} from the plain versions' (its max |g| {scale:.3e})")
+    return worst, worst_path, loss_k, loss_p
+
+
 def ssm_train_checks(torch, seed, cfg, batch) -> dict:
     """At the smallest depth that holds SSM_REMAT_LAYERS layers, a whole
     stacked group and a tail (the cut is of depth only; zamba2's group holds
     the shared attention block): the gradients of ``loss_fn`` with remat
     must equal those without bit for bit, every plain version refused; and
-    in fp32, on the batch's first row, every gradient leaf through the
-    kernels must be within SSM_PLAIN_GRAD_TOL of its max |g| of the same
-    loss through the plain versions on the card (``plain_versions_on_card``)
-    -- dB and dC reach the conv output ``bcc`` as slices of its gradient, so
-    a fault there shows in ``conv_bc_w``, ``conv_bc_b`` and ``bc_proj``."""
+    in fp32, on the batch's first row, ``plain_grad_check`` -- dB and dC
+    reach the conv output ``bcc`` as slices of its gradient, so a fault
+    there shows in ``conv_bc_w``, ``conv_bc_b`` and ``bc_proj``."""
     import dataclasses
 
     from repro_torch.checkpoint import flatten_tree
@@ -2449,7 +2510,7 @@ def ssm_train_checks(torch, seed, cfg, batch) -> dict:
     params = api.init(seed=seed)
     paths = [path for path, _ in flatten_tree(params)]
     with plain_versions_forbidden():
-        runs = {remat: ssm_grads(torch, api, params, batch, remat) for remat in (True, False)}
+        runs = {remat: loss_grads(torch, api, params, batch, remat) for remat in (True, False)}
     differ = [path for path, g, h in zip(paths, runs[True][1], runs[False][1])
               if not torch.equal(g, h)]
     loss_remat = runs[True][0]
@@ -2464,26 +2525,13 @@ def ssm_train_checks(torch, seed, cfg, batch) -> dict:
     api = build_model(cfg32, device=DEVICE)
     params = api.init(seed=seed)
     row = {k: v[:1] for k, v in batch.items()}
-    with plain_versions_forbidden():
-        loss_k, grads_k = ssm_grads(torch, api, params, row, remat=True)
-    with plain_versions_on_card():
-        loss_p, grads_p = ssm_grads(torch, api, params, row, remat=True)
-    worst, worst_path = 0.0, None
-    for path, g, h in zip(paths, grads_k, grads_p):
-        diff = (g - h).abs().max().item()
-        scale = h.abs().max().item()
-        ratio = diff / scale if scale > 0 else diff
-        if ratio >= worst:
-            worst, worst_path = ratio, path
-        if not math.isfinite(diff) or diff > SSM_PLAIN_GRAD_TOL * scale:
-            raise AssertionError(f"ssm-train: {path} gradient through the kernels differs by "
-                                 f"{diff:.3e} from the plain versions' (its max |g| {scale:.3e})")
+    worst, worst_path, loss_k, loss_p = plain_grad_check(torch, api, params, row, "ssm-train")
     log(f"ssm-train: {cfg.name} cut to {n} layers: loss {loss_remat:.6f} and all {len(paths)} "
         f"gradient leaves with remat equal those without bit for bit; in fp32 on "
         f"{tuple(row['tokens'].shape)} tokens every leaf through the kernels within {worst:.3e} "
         f"of its max |g| of the plain versions' on the card (worst {worst_path}; gate "
         f"{SSM_PLAIN_GRAD_TOL}), loss {loss_k:.6f} vs {loss_p:.6f}")
-    del grads_k, grads_p, params, api
+    del params, api
     return dict(layers=n, leaves=len(paths), remat_loss=loss_remat, plain_loss=[loss_k, loss_p],
                 plain_max_rel_diff=worst, plain_worst_leaf=worst_path)
 
@@ -2786,6 +2834,94 @@ def phase_dense_serve(torch, seed, smi, profile: bool = False):
     return launches, out
 
 
+# ------------------------------------------------------------ phase 13
+def dense_train_checks(torch, seed, cfg, batch) -> dict:
+    """At DENSE_REMAT_LAYERS layers (the cut is of depth only), the gradients
+    of ``loss_fn`` with remat against those without, every plain version
+    refused: every leaf within one bf16 ulp of its largest value, as phase 9
+    holds them; then at 1 layer in fp32 on DENSE_PLAIN_SEQ tokens of the
+    batch's first row, ``plain_grad_check``."""
+    import dataclasses
+
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.models import build_model
+
+    api = build_model(dataclasses.replace(cfg, n_layers=DENSE_REMAT_LAYERS), device=DEVICE)
+    params = api.init(seed=seed)
+    paths = [path for path, _ in flatten_tree(params)]
+    with plain_versions_forbidden():
+        runs = {remat: loss_grads(torch, api, params, batch, remat) for remat in (True, False)}
+    worst, equal = 0.0, 0
+    for path, g, h in zip(paths, runs[True][1], runs[False][1]):
+        diff = (g.float() - h.float()).abs().max().item()
+        scale = h.float().abs().max().item()
+        equal += diff == 0.0
+        worst = max(worst, diff / scale if scale > 0 else diff)
+        if not math.isfinite(diff) or diff > BF16_ULP * scale:
+            raise AssertionError(f"dense-train remat check: {path} gradient with remat differs by "
+                                 f"{diff:.3e} from the one without (its max |g| {scale:.3e})")
+    losses = [runs[True][0], runs[False][0]]
+    del runs, params, api
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=1, param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg32, device=DEVICE)
+    params = api.init(seed=seed)
+    row = {k: v[:1, :DENSE_PLAIN_SEQ] for k, v in batch.items()}
+    pworst, pworst_path, loss_k, loss_p = plain_grad_check(torch, api, params, row, "dense-train")
+    log(f"dense-train: remat check at {DENSE_REMAT_LAYERS} layers (depth cut only): loss "
+        f"{losses[0]:.6f} with remat, {losses[1]:.6f} without; {equal} of {len(paths)} gradient "
+        f"leaves equal bit for bit, the largest difference {worst:.3e} of a leaf's max |g| (gate: "
+        f"2^-7); in fp32 at 1 layer on {tuple(row['tokens'].shape)} tokens every leaf through the "
+        f"kernels within {pworst:.3e} of its max |g| of the plain versions' on the card (worst "
+        f"{pworst_path}; gate {SSM_PLAIN_GRAD_TOL}), loss {loss_k:.6f} vs {loss_p:.6f}")
+    del params, api
+    return dict(remat_layers=DENSE_REMAT_LAYERS, remat_loss=losses, equal_leaves=equal,
+                leaves=len(paths), remat_max_rel_diff=worst, plain_loss=[loss_k, loss_p],
+                plain_max_rel_diff=pworst, plain_worst_leaf=pworst_path)
+
+
+def phase_dense_train(torch, seed, smi, profile: bool = False):
+    """DENSE_TRAIN_MODEL at every published width, cut to DENSE_TRAIN_LAYERS
+    layers, its weights drawn on the card from ``seed``, trained on phase 5's
+    batch and schedule with AdamW state on the device, every plain version
+    refused and the launches exact (B1 both ways at G 48, B3a both ways at
+    d_model 6144); then the remat and plain-version checks.  Returns
+    (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    full = get_config(DENSE_TRAIN_MODEL)
+    cfg = dataclasses.replace(full, n_layers=DENSE_TRAIN_LAYERS)
+    api = build_model(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = api.init(seed=seed)
+    n_params = sum(t.numel() for _, t in flatten_tree(params))
+    sync(torch)
+    log(f"dense-train: {cfg.name} ({cfg.n_layers} of its {full.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_} (GQA group "
+        f"{cfg.n_heads // cfg.n_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B params; {full.param_count() / 1e9:.3f} B at full depth) drawn on "
+        f"the card (api.init) in {time.perf_counter() - t0:.1f} s")
+    batch = token_batch(torch, cfg, seed, TRAIN_BATCH, TRAIN_SEQ)
+    with plain_versions_forbidden():
+        params, opt, train_step, launches, out = run_train(
+            torch, smi, "dense-train", api, params, batch, TRAIN_BATCH * TRAIN_SEQ)
+    if profile:
+        out["profile_step_s"] = phase_profile_train(torch, params, opt, batch, train_step,
+                                                    "dense-train")
+    del params, opt, train_step
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out.update(layers=cfg.n_layers, params=n_params,
+               checks=dense_train_checks(torch, seed, full, batch))
+    return launches, out
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2852,6 +2988,10 @@ def main() -> int:
     dense_launches, dense = phase_dense_serve(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"dense-serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_train_launches, dense_train = phase_dense_train(torch, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    log(f"dense-train: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -2874,7 +3014,7 @@ def main() -> int:
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
                "pilot": pilot_launches, "moe": moe_launches_all, "moe-train": moe_train_launches,
                "whisper": whisper_launches, "ssm-train": ssm_train_launches,
-               "dense-serve": dense_launches}
+               "dense-serve": dense_launches, "dense-train": dense_train_launches}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -2901,6 +3041,7 @@ def main() -> int:
     log("whisper: " + json.dumps(whisper_out))
     log("ssm-train: " + json.dumps(ssm_train))
     log("dense-serve: " + json.dumps(dense))
+    log("dense-train: " + json.dumps(dense_train))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

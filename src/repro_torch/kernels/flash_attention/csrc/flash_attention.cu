@@ -31,8 +31,7 @@
 //     Where G does not divide M (G 3: 42 positions in 128 rows) the last
 //     M % G rows are spare and masked (`Rows::span`).  granite-34b's MQA
 //     (G 48) packs 2 positions in 128 rows (the last two warps spare) and 1
-//     in 64; the backward has no G 48 (its 32-row dK/dV tiles would hold no
-//     position), and the wrapper refuses one (`ops.BWD_GROUPS`).
+//     in 64.
 //     S stays in registers; the online softmax (fp32, log2 domain, scores
 //     scaled by scale*log2(e) after the product) runs on the accumulator
 //     fragments, and P is rounded to bf16 in registers and fed as the A
@@ -46,6 +45,16 @@
 //     deterministic.  The dQ kernel's recomputation makes the backward
 //     execute 14*D flops per pair against the bound's 10*D: the price of
 //     having no atomics.
+//   * A group too large for a 32-row dK/dV tile (granite-34b's G 48: 32 / 48
+//     positions) is taken in `head_parts` parts of G / P heads: a block
+//     serves one part of one kv head, so its tiles hold 32 / (G / P)
+//     positions of G / P heads, and the grid has P times the blocks, which
+//     also spreads MQA's one kv head over the card.  Each part writes its
+//     fp32 dK and dV to scratch, and a fold kernel adds the parts in part
+//     order (no atomics: the same bits every call) and rounds to bf16.
+//     Key blocks are the dK/dV grid's slow dimension, so under a causal
+//     mask the blocks with the most query tiles (the first keys) start
+//     first.
 //   * Rounding points beyond the output's: P (forward, and the dV product)
 //     and dS (the dK and dQ products) are rounded to bf16 as A operands; row
 //     sums, maxima and every accumulator stay fp32.  ref.py's `p_dtype`,
@@ -84,6 +93,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 struct FlashArgs {
   int dtype;  // 0 = float32, 1 = bfloat16
   int batch, seq_q, seq_k, n_kv_heads, group, head_dim, causal, window;
+  int head_parts;  // bf16 dK/dV: the group's heads in this many parts (1: whole)
+  int dkv_warps;   // bf16 dK/dV at D 128: 4 or 8 warps a block (0: 8)
   float scale;
   const void* q;
   const void* k;
@@ -94,8 +105,9 @@ struct FlashArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* lse;    // [B, Hq, Sq]
-  float* delta;  // [B, Hq, Sq]
+  float* lse;       // [B, Hq, Sq]
+  float* delta;     // [B, Hq, Sq]
+  float* dkv_part;  // [P, 2, B, Sk, Hkv, D] fp32: each part's dK and dV (head_parts > 1)
   long long q_s[3], k_s[3], v_s[3], o_s[3], do_s[3], dq_s[3], dk_s[3], dv_s[3];
   void* stream;
 };
@@ -961,17 +973,19 @@ __global__ void __launch_bounds__(M * 2, D <= 80 ? 2 : 1) flash_bwd_dq_mma_kerne
   }
 }
 
-// dK, dV.  grid (ceil(Sk / BKV), B*Hkv), NT threads.  Warp w owns keys
+// dK, dV.  grid (B*Hkv*P, ceil(Sk / BKV)), NT threads: block (x, y) serves
+// head part x % P of kv head x / P and keys y*BKV..  Warp w owns keys
 // 16*(w / SPLIT).. of the block's BKV and columns DC*(w % SPLIT).. of dK
-// and dV; q tiles of MR rows (MR/G positions x G heads) come through a ring
-// of two stages.  Up to D 80 the accumulators fit 128 registers (a few
-// spill), so 4-warp blocks run four to an SM; D 128 and 256 need ~240, one
-// 8-warp block an SM.  On the H100 at the training shape the first is 6.6 %
-// faster than 8-warp blocks at one an SM.
-template <int D>
+// and dV; q tiles of MR rows (MR/GP positions x the part's GP = G/P heads)
+// come through a ring of two stages.  Up to D 80 the accumulators fit 128
+// registers (a few spill), so 4-warp blocks run four to an SM; D 128 and
+// 256 need ~240, one 8-warp block an SM (or two 4-warp ones at D 128).  On
+// the H100 at the training shape the first is 6.6 % faster than 8-warp
+// blocks at one an SM.
+template <int D, int NW_ = (D <= 80 ? 4 : 8)>
 struct DkvCfg {
-  static constexpr int NW = D <= 80 ? 4 : 8, NT = NW * 32;
-  static constexpr int MIN_BLOCKS = D <= 80 ? 4 : 1;
+  static constexpr int NW = NW_, NT = NW * 32;
+  static constexpr int MIN_BLOCKS = D <= 80 ? 4 : 8 / NW;
   static constexpr int SPLIT = D > 128 ? 2 : 1;  // D 256: two warps per 16 keys
   static constexpr int BKV = 16 * NW / SPLIT;
   static constexpr int MR = 32;
@@ -981,10 +995,10 @@ struct DkvCfg {
       static_cast<size_t>(2 * BKV + 4 * MR) * LD * sizeof(bf16) + 4 * MR * sizeof(float);
 };
 
-template <int D>
-__global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
+template <int D, int NW>
+__global__ void __launch_bounds__(DkvCfg<D, NW>::NT, DkvCfg<D, NW>::MIN_BLOCKS)
     flash_bwd_dkv_mma_kernel(const FlashArgs a) {
-  using C = DkvCfg<D>;
+  using C = DkvCfg<D, NW>;
   constexpr int BKV = C::BKV, MR = C::MR, DC = C::DC, LD = C::LD, NN = MR / 8, DN = DC / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][LD]
@@ -995,9 +1009,11 @@ __global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* dout = static_cast<const bf16*>(a.dout);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y / a.n_kv_heads, h = blockIdx.y % a.n_kv_heads;
-  const int G = a.group;
-  const int k0 = blockIdx.x * BKV;
+  const int P = a.head_parts, part = blockIdx.x % P;
+  const int b = blockIdx.x / P / a.n_kv_heads, h = blockIdx.x / P % a.n_kv_heads;
+  const int G = a.group, GP = G / P;  // the part's heads: h*G + part*GP..
+  const int head0 = h * G + part * GP;
+  const int k0 = blockIdx.y * BKV;
   const int kw = k0 + 16 * (warp / C::SPLIT);  // this warp's first key
   const int d0 = DC * (warp % C::SPLIT);
   const float c2 = a.scale * kLog2e;
@@ -1010,17 +1026,17 @@ __global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
   const int q_lo = a.causal ? k0 : 0;
   int q_hi = a.seq_q - 1;
   if (a.window > 0) q_hi = min(q_hi, k_last + a.window - 1);
-  const int bq = MR / G;
+  const int bq = MR / GP;
   const int q_first = (q_lo / bq) * bq;
 
   auto qtile = [&](int qs) {
-    return Rows{b * a.q_s[0], qs, h * G, G, a.seq_q, a.q_s[1], a.q_s[2], bq};
+    return Rows{b * a.q_s[0], qs, head0, GP, a.seq_q, a.q_s[1], a.q_s[2], bq};
   };
   auto load_q = [&](int qs, int stage) {
     bf16* qd = QO + stage * 2 * MR * LD;
     load_rows<D, C::NT>(qd, MR, q, qtile(qs));
     load_rows<D, C::NT>(qd + MR * LD, MR, dout,
-                        Rows{b * a.do_s[0], qs, h * G, G, a.seq_q, a.do_s[1], a.do_s[2], bq});
+                        Rows{b * a.do_s[0], qs, head0, GP, a.seq_q, a.do_s[1], a.do_s[2], bq});
   };
   if (q_first <= q_hi) {
     load_q(q_first, 0);
@@ -1065,7 +1081,7 @@ __global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
         for (int e = 0; e < 4; ++e) {
           const int r = 8 * n + 2 * (lane % 4) + (e & 1);
           float p = exp2f(st[n][e] * c2 - lse2[r]);  // 0 on a spare row (lse2 +inf)
-          if (partial && !keep(a, qs + r / G, kpos[e / 2])) p = 0.f;
+          if (partial && !keep(a, qs + r / GP, kpos[e / 2])) p = 0.f;
           st[n][e] = p;
           dpt[n][e] = p * (dpt[n][e] - dl[r]);  // dS^T, unscaled
         }
@@ -1080,6 +1096,22 @@ __global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
     __syncthreads();
   }
 
+  if (P > 1) {  // this part's share, unscaled, for the fold kernel
+    const long long plane = static_cast<long long>(a.batch) * a.seq_k * a.n_kv_heads * D;
+    float* pk = a.dkv_part + 2 * part * plane;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kpos[i] >= a.seq_k) continue;
+      const long long row = (static_cast<long long>(b) * a.seq_k + kpos[i]) * a.n_kv_heads + h;
+      float* krow = pk + row * D + d0 + 2 * (lane % 4);
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        *reinterpret_cast<float2*>(krow + 8 * n) = make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
+        *reinterpret_cast<float2*>(krow + plane + 8 * n) = make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+      }
+    }
+    return;
+  }
   bf16* dkp = static_cast<bf16*>(a.dk);
   bf16* dvp = static_cast<bf16*>(a.dv);
 #pragma unroll
@@ -1095,6 +1127,38 @@ __global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
           __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
+}
+
+// dK = scale * (the parts' dK summed), dV = the parts' dV summed, in part
+// order, to bf16.  One thread a 4-column chunk of a key row.  Bound by
+// bytes: P x 2 fp32 rows in, 2 bf16 rows out.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_fold_kernel(const FlashArgs a) {
+  constexpr int CH = D / 4;
+  const long long rows = static_cast<long long>(a.batch) * a.seq_k * a.n_kv_heads;
+  const long long idx = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= rows * CH) return;
+  const long long row = idx / CH;
+  const int c = static_cast<int>(idx % CH) * 4;
+  const int h = static_cast<int>(row % a.n_kv_heads);
+  const long long bs = row / a.n_kv_heads;
+  const int s = static_cast<int>(bs % a.seq_k), b = static_cast<int>(bs / a.seq_k);
+  const long long plane = rows * D;
+  const float* src = a.dkv_part + row * D + c;
+  float4 k = *reinterpret_cast<const float4*>(src);
+  float4 v = *reinterpret_cast<const float4*>(src + plane);
+  for (int p = 1; p < a.head_parts; ++p) {
+    const float4 pk = *reinterpret_cast<const float4*>(src + 2 * p * plane);
+    const float4 pv = *reinterpret_cast<const float4*>(src + (2 * p + 1) * plane);
+    k.x += pk.x; k.y += pk.y; k.z += pk.z; k.w += pk.w;
+    v.x += pv.x; v.y += pv.y; v.z += pv.z; v.w += pv.w;
+  }
+  bf16* krow = static_cast<bf16*>(a.dk) + b * a.dk_s[0] + s * a.dk_s[1] + h * a.dk_s[2] + c;
+  bf16* vrow = static_cast<bf16*>(a.dv) + b * a.dv_s[0] + s * a.dv_s[1] + h * a.dv_s[2] + c;
+  reinterpret_cast<__nv_bfloat162*>(krow)[0] = __floats2bfloat162_rn(k.x * a.scale, k.y * a.scale);
+  reinterpret_cast<__nv_bfloat162*>(krow)[1] = __floats2bfloat162_rn(k.z * a.scale, k.w * a.scale);
+  reinterpret_cast<__nv_bfloat162*>(vrow)[0] = __floats2bfloat162_rn(v.x, v.y);
+  reinterpret_cast<__nv_bfloat162*>(vrow)[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
 // ------------------------------------------------------------------ host
@@ -1182,14 +1246,34 @@ int fwd_bf16(const FlashArgs& a) {
   return static_cast<int>(fwd_mma<D, 64>(a));
 }
 
+template <int D, int NW>
+cudaError_t dkv_mma(const FlashArgs& a) {
+  using KV = DkvCfg<D, NW>;
+  const dim3 grid(a.batch * a.n_kv_heads * a.head_parts, cdiv(a.seq_k, KV::BKV));
+  return launch(flash_bwd_dkv_mma_kernel<D, NW>, grid, KV::NT, KV::SMEM, a);
+}
+
 template <int D>
 int bwd_bf16(const FlashArgs& a) {
+  // every part's tile must hold a position, the parts need their scratch,
+  // and only D 128 has a choice of warps
+  const bool warps_ok = a.dkv_warps == 0 || (D == 128 && (a.dkv_warps == 4 || a.dkv_warps == 8));
+  if (a.head_parts < 1 || a.group % a.head_parts || a.group / a.head_parts > DkvCfg<D>::MR ||
+      (a.head_parts > 1 && a.dkv_part == nullptr) || !warps_ok)
+    return -1;
   cudaError_t err = launch_delta<bf16, D>(a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  using KV = DkvCfg<D>;
-  err = launch(flash_bwd_dkv_mma_kernel<D>, dim3(cdiv(a.seq_k, KV::BKV), a.batch * a.n_kv_heads),
-               KV::NT, KV::SMEM, a);
+  if constexpr (D == 128) {
+    err = a.dkv_warps == 4 ? dkv_mma<D, 4>(a) : dkv_mma<D, 8>(a);
+  } else {
+    err = dkv_mma<D, DkvCfg<D>::NW>(a);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.head_parts > 1) {
+    const long long chunks = static_cast<long long>(a.batch) * a.seq_k * a.n_kv_heads * (D / 4);
+    err = launch(flash_bwd_fold_kernel<D>, dim3(cdiv(chunks, 256)), 256, 0, a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if constexpr (D <= 128) {
     if (big_q_tiles<D>(a)) return static_cast<int>(dq_mma<D, 128>(a));
   }

@@ -5,7 +5,8 @@ forward launches the forward kernel and its backward the backward kernels
 (or they raise); on CPU tensors both run the plain versions in :mod:`.ref`.
 ``flash_attention.launches`` counts forward launches and
 ``flash_attention.backward_launches`` backward launches (three kernels
-each: delta, dK/dV, dQ); the plain versions do not count.
+each: delta, dK/dV, dQ, and a fold of the dK/dV parts where the group is
+taken in head parts); the plain versions do not count.
 """
 
 from __future__ import annotations
@@ -22,9 +23,18 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 #: argument; G 48 is granite-34b's 48 query heads over one kv head)
 HEAD_DIMS = (64, 80, 128, 256)
 GROUPS = (1, 2, 3, 4, 8, 48)
-#: the groups the backward kernels take: their query tiles hold kMR / G
-#: positions (64 / G in fp32, 32 / G in bf16), none at G 48
-BWD_GROUPS = (1, 2, 3, 4, 8)
+#: the groups the backward kernels take: every one of the forward's
+BWD_GROUPS = GROUPS
+#: the bf16 dK/dV kernel's head parts by group: its 32-row query tiles hold
+#: 32 / (G / P) positions of the G / P heads of one part (G 48: none whole),
+#: each part writes fp32 scratch, and a fold kernel sums the parts in order.
+#: G 48 takes 6 parts of 8 heads, the fastest of P 2-48 at granite-34b's
+#: training shape on the H100 (tools/time_port_kernels.py --sweep b1bwd)
+HEAD_PARTS = {48: 6}
+#: warps a block of the bf16 dK/dV kernel by group at D 128: 8 (128 keys a
+#: block, one block an SM) where a group is not listed, or 4 (64 keys, two);
+#: the sweep sets it, and 8 was the faster at the training shape
+DKV_WARPS = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _Strides = ctypes.c_longlong * 3
@@ -36,10 +46,10 @@ class FlashArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_int) for n in (
             "dtype", "batch", "seq_q", "seq_k", "n_kv_heads", "group", "head_dim",
-            "causal", "window")]
+            "causal", "window", "head_parts", "dkv_warps")]
         + [("scale", ctypes.c_float)]
         + [(n, ctypes.c_void_p) for n in (
-            "q", "k", "v", "o", "dout", "out", "dq", "dk", "dv", "lse", "delta")]
+            "q", "k", "v", "o", "dout", "out", "dq", "dk", "dv", "lse", "delta", "dkv_part")]
         + [(n, _Strides) for n in (
             "q_s", "k_s", "v_s", "o_s", "do_s", "dq_s", "dk_s", "dv_s")]
         + [("stream", ctypes.c_void_p)]
@@ -96,7 +106,7 @@ def _args(q, k, v, causal, window, scale, **tensors) -> FlashArgs:
     a = FlashArgs(
         dtype=_DTYPE_CODES[q.dtype], batch=b, seq_q=sq, seq_k=k.shape[1],
         n_kv_heads=k.shape[2], group=hq // k.shape[2], head_dim=d,
-        causal=int(causal), window=window or 0, scale=scale,
+        causal=int(causal), window=window or 0, head_parts=1, scale=scale,
         stream=torch.cuda.current_stream(q.device).cuda_stream,
     )
     for name, t in dict(q=q, k=k, v=v, **tensors).items():
@@ -125,12 +135,8 @@ def _fwd_cuda(q, k, v, causal, window, scale):
 
 def _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale):
     _check(q, k, v)
-    b, sq, hq, _ = q.shape
-    if hq // k.shape[2] not in BWD_GROUPS:
-        raise NotImplementedError(
-            f"flash_attention backward kernels have no instance for group={hq // k.shape[2]} "
-            f"(built for {BWD_GROUPS})"
-        )
+    b, sq, hq, d = q.shape
+    g = hq // k.shape[2]
     if dout.device != q.device or dout.dtype != q.dtype:
         raise TypeError("flash_attention: dout must match q's device and dtype")
     if dout.stride(3) != 1 or any((dout.stride(i) * dout.element_size()) % 16 for i in range(3)):
@@ -141,6 +147,11 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale):
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     a = _args(q, k, v, causal, window, scale, o=out, dout=dout, dq=dq, dk=dk, dv=dv,
               lse=lse, delta=delta)
+    parts = HEAD_PARTS.get(g, 1) if q.dtype == torch.bfloat16 else 1  # fp32: never split
+    if parts > 1:
+        scratch = torch.empty((parts, 2, *k.shape), dtype=torch.float32, device=q.device)
+        a.head_parts, a.dkv_part = parts, scratch.data_ptr()
+    a.dkv_warps = DKV_WARPS.get(g, 0) if d == 128 else 0
     _run("flash_attention_bwd_launch", a)
     count_launch(flash_attention, "backward_launches")
     return dq, dk, dv

@@ -27,8 +27,20 @@ MAX_D = 16384
 FWD_TILE_ELEMS = 8192
 FWD_MAX_ROWS = 4
 #: the backward's first pass: (rows a tile, warps, pipeline stages of its
-#: row loop, programs an SM), each program walking a run of whole tiles
+#: row loop at most, programs an SM), each program walking a run of whole tiles
 BWD_ROWS, BWD_WARPS, BWD_STAGES, BWD_PROGRAMS_PER_SM = 2, 4, 4, 1
+#: shared memory a Hopper block may hold (227 KB): the backward's pipeline
+#: keeps STAGES - 1 tiles of x and dy there
+SMEM_BYTES = 232448
+
+
+def _bwd_stages(tile: int, d: int, item: int) -> int:
+    """Pipeline stages of the backward's row loop: BWD_STAGES where the
+    STAGES - 1 staged tiles of x and dy fit a block's shared memory, else as
+    many as fit (1: no pipeline); fp32 rows of 6144 take 3."""
+    a, bb = _blocks(d)
+    per_stage = 2 * tile * (a + bb) * item  # x and dy tiles, padded to the blocks
+    return max(1, min(BWD_STAGES, 1 + (SMEM_BYTES - 1024) // per_stage))
 
 
 def _blocks(d: int) -> Tuple[int, int]:
@@ -131,7 +143,8 @@ def _launch_bwd(dy, x, w, eps):
     # one row a program (``_row_block``) and no pipeline
     sms = _sms(x.device)
     if rows >= 2 * sms:
-        tile, stages, warps = BWD_ROWS, BWD_STAGES, BWD_WARPS
+        tile, warps = BWD_ROWS, BWD_WARPS
+        stages = _bwd_stages(tile, d, x.element_size())
         block_a, block_b = _blocks(d)
     else:
         tile, stages, block_b = 1, 1, 0

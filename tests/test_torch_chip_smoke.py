@@ -110,7 +110,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
                      ("gemma3-1b forward, global", 2, 24, 4, 1, 16, True, None),
                      ("whisper cross", 2, (12, 20), 4, 4, 16, False, None),
                      ("h2o-danube serve forward", 2, 14, 8, 2, 16, True, 8),
-                     ("granite-34b forward", 2, 12, 48, 1, 16, True, None)],
+                     ("granite-34b forward", 2, 12, 48, 1, 16, True, None),
+                     ("granite-34b train", 2, 24, 48, 1, 16, True, None)],
         FLASH_FP32_CASES=[("fp32 non-causal", 1, 20, 4, 1, 16, False, None),
                           ("fp32 G 48 ragged", 1, 10, 48, 1, 16, True, 4)],
         RMSNORM_CASES=[(4, 64), (40, 128)], RMSNORM_RESIDUAL_CASES=[(4, 64)],
@@ -141,6 +142,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         DENSE_MODELS=[("tiny-danube", None, True, 10, 4, (0, 7, 9, 13)),
                       ("tiny-granite", 1, False, 8, 4, (0, 5, 7, 11))],
         DENSE_BATCH=2, DENSE_MAX_LEN=16,
+        # phase 13: tiny-granite trained uncut on phase 5's tiny batch, its
+        # remat and plain-version checks at 1 layer
+        DENSE_TRAIN_MODEL="tiny-granite", DENSE_TRAIN_LAYERS=2, DENSE_REMAT_LAYERS=1,
+        DENSE_PLAIN_SEQ=16,
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -266,12 +271,20 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert dense == {"decode_attention": 14 * 2 + 12 * 1, "rmsnorm": (14 * 5 + 5) + (12 * 3 + 3),
                      "flash_attention": 2 + 1, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
                      "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
-    # B1's phase 12 cases (G 48 among them) run the forward only
+    # dense-train: tiny-granite (2 layers, 48/1 heads), 2 evals (2 attention,
+    # 5 norms each) and 4 remat steps (2 + 2 attention forwards, 2 backwards;
+    # 5 + 4 norm forwards, 5 backwards)
+    dense_train = {name: k["launches_by_path"]["dense-train"] for name, k in kernels.items()}
+    assert dense_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
+                           "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
+                           "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    # h2o-danube's phase 12 case runs the forward only; granite-34b's G 48
+    # runs both ways at its serve and its training shape
     fwd = [c["case"] for c in kernels["flash_attention"]["cases"]]
     bwd = [c["case"] for c in kernels["flash_attention_bwd"]["cases"]]
-    for case in ("h2o-danube serve forward", "granite-34b forward"):
-        assert case in fwd and case not in bwd
-    assert "h2o-danube train" in bwd
+    assert "h2o-danube serve forward" in fwd and "h2o-danube serve forward" not in bwd
+    for case in ("h2o-danube train", "granite-34b forward", "granite-34b train"):
+        assert case in fwd and case in bwd
     assert kernels["ssd_scan_bwd"]["library_ms"] is None
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",

@@ -434,19 +434,42 @@ def test_flash_forward_at_group_48_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_at_group_48_raises_before_any_launch(cuda, dtype):
-    """The backward kernels have no G 48 instance: autograd through the
-    forward raises NotImplementedError and no backward kernel runs."""
+def test_flash_backward_at_group_48_matches_plain(cuda, dtype):
+    """granite-34b's MQA (48/1 heads of 128) backward: a slice of its
+    training shape, [1, 2048] causal, and a ragged [1, 100] under every
+    mask, forward and backward through the autograd Function against the
+    plain versions with the launches counted (bf16's dK/dV kernel takes the
+    48 heads in ``ops.HEAD_PARTS[48]`` parts and folds them; fp32's 64-row
+    tiles hold one position, 16 rows spare); two backward calls give the
+    same bits."""
     from repro_torch.kernels.flash_attention import ops
 
-    q, k, v = (t.detach().requires_grad_() for t in _flash_inputs(
-        cuda, 128, 48, dtype, seed=48, b=1, s=64, hkv=1))
-    out = ops.flash_attention(q, k, v)
+    for b, s, masks in ((1, 2048, [(True, None)]), (1, 100, FLASH_MASKS)):
+        q, k, v = _flash_inputs(cuda, 128, 48, dtype, seed=s, b=b, s=s, hkv=1)
+        _check_flash(q, k, v, masks)
+        for causal, window in masks:
+            out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
+            dout = torch.randn(out.shape, device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(s)).to(dtype)
+            first = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+            second = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+            torch.cuda.synchronize()
+            for x, y in zip(first, second):
+                assert torch.equal(x, y), (b, s, causal, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_refuses_a_group_without_an_instance(cuda, dtype):
+    """G 6 has no instance in either direction: the backward raises
+    NotImplementedError before any launch."""
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.zeros(1, 64, 6, 128, device=cuda, dtype=dtype)
+    k = torch.zeros(1, 64, 1, 128, device=cuda, dtype=dtype)
+    lse = torch.zeros(1, 6, 64, device=cuda)
     before = (ops.flash_attention.launches, ops.flash_attention.backward_launches)
-    with pytest.raises(NotImplementedError, match="group=48"):
-        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
-    with pytest.raises(NotImplementedError, match="group=48"):
-        ops.flash_attention_bwd(q, k, v, out, torch.zeros(1, 48, 64, device=cuda), out)
+    with pytest.raises(NotImplementedError, match="group=6"):
+        ops.flash_attention_bwd(q, k, k, q, lse, q)
     torch.cuda.synchronize()
     assert (ops.flash_attention.launches, ops.flash_attention.backward_launches) == before
 
@@ -463,7 +486,7 @@ def test_flash_kernel_rejects_what_it_has_no_instance_for(cuda):
 
 
 @pytest.mark.parametrize("rows,d", [(1, 64), (300, 1152), (4100, 2560), (3583, 1280),
-                                    (4097, 1536)])
+                                    (4097, 1536), (1024, 6144)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d, dtype):
     from repro_torch.kernels.rmsnorm import ops
@@ -1128,3 +1151,65 @@ def test_two_serve_cus_on_card_count_every_launch(cuda, monkeypatch):
     assert norm_ops.rmsnorm.launches == 2 * (2 * cfg.n_layers + 1) * steps
     direct = DecodeEngine(api, params, batch=4, max_len=64).generate(prompts, new)
     assert outs[0] == outs[1] == direct.cpu().tolist()
+
+
+# each architecture's smoke config (reduced depth and d_model) at its
+# published attention shape: (model, heads, kv heads, head_dim)
+ARCH_SHAPES = [
+    ("llava-next-mistral-7b", 32, 8, 128),  # G 4, prefix_embeds
+    ("gemma3-12b", 16, 8, 256),  # G 2, sliding-window and global layers
+    ("qwen3-moe-30b-a3b", 32, 4, 128),  # G 8, MoE
+    ("granite-34b", 48, 1, 128),  # MQA, G 48
+]
+
+
+@pytest.mark.parametrize("case", ARCH_SHAPES, ids=[c[0] for c in ARCH_SHAPES])
+def test_architectures_on_card_match_the_plain_path(cuda, monkeypatch, case):
+    """fp32, 2 x 48 tokens (llava: 8 patch embeddings before them): the
+    forward, ``loss_fn``, every gradient leaf (remat) and 8 decode steps on
+    the card with every plain version made to raise, against the same
+    config and params on the CPU, where the wrappers run the plain
+    versions.  Logits, losses and decode within 1e-4 of the CPU tensor's
+    max; gradients within 1e-3 of each leaf's max |g| (as phase 11 of
+    chip_smoke.py holds the SSM gradients: sums in another order through
+    every layer's backward)."""
+    import dataclasses
+
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    name, hq, hkv, d = case
+    cfg = dataclasses.replace(get_config(name + "-smoke"), n_heads=hq, n_kv_heads=hkv, head_dim=d)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 49), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = 0.02 * torch.randn(2, cfg.vlm.n_patches, cfg.d_model,
+                                                    generator=gen)
+
+    def run(api, params):
+        dev = {k: v.to(api.device) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = api.forward(params, dev["tokens"], prefix_embeds=dev.get("prefix_embeds"))
+            cache, dec = api.init_cache(2, 8), []
+            for i in range(8):
+                lg, cache = api.decode_step(params, cache, dev["tokens"][:, i : i + 1], i)
+                dec.append(lg[:, 0])
+        leaves = [t.requires_grad_(True) for _, t in flatten_tree(params)]
+        loss, m = api.loss_fn(params, dev, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        return [t.detach().float().cpu() for t in (logits, torch.stack(dec, 1), m["ce"], loss)], [
+            g.float().cpu() for g in grads]
+
+    cpu_api = build_model(cfg, device="cpu")
+    cpu_params = cpu_api.init(seed=0)
+    params = _to(cpu_params, cuda)
+    want, want_g = run(cpu_api, cpu_params)
+    _refuse_plain_versions(monkeypatch)
+    got, got_g = run(build_model(cfg, device=cuda), params)
+    for what, x, y in zip(("logits", "decode", "ce", "loss"), got, want):
+        assert x.shape == y.shape and bool(x.isfinite().all()), what
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), what
+    for (path, _), x, y in zip(flatten_tree(cpu_params), got_g, want_g):
+        assert (x - y).abs().max().item() <= 1e-3 * y.abs().max().item(), path

@@ -136,7 +136,8 @@ def test_flash_forward_lse_is_the_log_sum_exp():
     assert _maxerr(lse.numpy(), ref.numpy()) < 1e-5
 
 
-@pytest.mark.parametrize("g", [1, 4])
+# G 3 and 48: granite-moe-3b-a800m's and granite-34b's groups
+@pytest.mark.parametrize("g", [1, 3, 4, 48])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, 16)])
 @pytest.mark.parametrize("block_k", [16, 1024])
 def test_flash_backward_matches_blocked_attention_vjp(g, causal, window, block_k):

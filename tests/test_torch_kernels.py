@@ -205,3 +205,53 @@ def test_ptxas_report_reads_registers_and_spills(fn, want):
     report = build.ptxas_report(PTXAS_LOG)
     assert len(report) == 3
     assert report[fn] == want
+
+
+def _c_struct_fields(src: str, name: str):
+    """The field names of ``struct <name> { ... };`` in a C source, in order
+    (comma-separated declarators and array extents included)."""
+    import re
+
+    body = src.split(f"struct {name} {{", 1)[1].split("};", 1)[0]
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        decl = re.sub(r"\[\d+\]", "", decl)
+        first, *rest = (part.strip() for part in decl.split(","))
+        fields += [first.split()[-1].lstrip("*")] + [r.lstrip("*") for r in rest]
+    return fields
+
+
+@pytest.mark.parametrize("kernel,package,struct", [
+    ("flash_attention", "flash_attention", "FlashArgs"),
+    ("ssd_scan", "ssd_scan", "SsdArgs"),
+    ("ssd_scan_bwd", "ssd_scan", "SsdBwdArgs"),
+])
+def test_ctypes_args_mirror_the_c_struct(kernel, package, struct):
+    """The ctypes structure a wrapper passes to a CUDA entry point has the C
+    struct's fields in the C struct's order (an added field out of place
+    would shift every later one on the card)."""
+    import importlib
+
+    from repro_torch.kernels import build
+
+    ops = importlib.import_module(f"repro_torch.kernels.{package}.ops")
+    src = (build.KERNELS_DIR / build.SOURCES[kernel]).read_text()
+    assert [n for n, _ in getattr(ops, struct)._fields_] == _c_struct_fields(src, struct)
+
+
+@pytest.mark.parametrize("item", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 1152, 1536, 2560, 4096, 6144, 8192, 16384])
+def test_rmsnorm_backward_pipeline_fits_shared_memory(d, item):
+    """The backward's row loop keeps STAGES - 1 tiles of x and dy in shared
+    memory: at every width the launch takes as many stages as fit a Hopper
+    block (at most BWD_STAGES), so fp32 rows of 6144 (granite-34b's
+    d_model), which need 294,944 bytes at 4 stages, run at 3."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    stages = ops._bwd_stages(ops.BWD_ROWS, d, item)
+    a, bb = ops._blocks(d)
+    per_stage = 2 * ops.BWD_ROWS * (a + bb) * item
+    assert 1 <= stages <= ops.BWD_STAGES
+    assert (stages - 1) * per_stage + 1024 <= ops.SMEM_BYTES
+    assert stages == ops.BWD_STAGES or stages * per_stage + 1024 > ops.SMEM_BYTES

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Time the port's B2 (decode attention), B3a (RMSNorm) and B4-backward
-(SSD chunk scan VJP) kernels on one GPU at ``chip_smoke.py``'s phase 3
-shapes, from any checkout of the port.
+"""Time the port's B1-backward (flash attention VJP), B2 (decode attention),
+B3a (RMSNorm) and B4-backward (SSD chunk scan VJP) kernels on one GPU at
+``chip_smoke.py``'s phase 3 shapes, from any checkout of the port.
 
-    python3 tools/time_port_kernels.py [--src DIR] [--kernels b2,b3a,b4bwd]
-                                       [--sweep b2,fwd,bwd] [--out FILE]
+    python3 tools/time_port_kernels.py [--src DIR] [--kernels b1bwd,b2,b3a,b4bwd]
+                                       [--sweep b1bwd,b2,fwd,bwd] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (this
 checkout's by default; a parent commit unpacked elsewhere to compare two
 versions in one call).  Each case is timed through the public wrappers as
 phase 3 times it (CUDA events, median of 30 launches, the L2 cache flushed
 before each), beside SDPA or ``F.rms_norm``.  ``--kernels`` picks what
-is timed (B2 and B3a by default); ``b4bwd`` times B4's backward whole and
+is timed (B2 and B3a by default); ``b1bwd`` times B1's backward (bf16) at
+every phase 3 case that runs it (a case whose group the checkout's
+backward refuses logs the refusal); ``b4bwd`` times B4's backward whole and
 pass by pass at ``SSD_BWD_CASES`` (phase 11's training shapes) on the
 forward kernel's own scratch, with the max |error| of its dx and dC
 passes against their plain versions and the checkout's design constants
 (threads a block, positions a ring stage, stages, blocks an SM by shared
 memory; null where the checkout has none).  ``--sweep`` also times the
-kernels of this checkout under other launch shapes: B2 with the cache cut
+kernels of this checkout under other launch shapes: B1's backward at
+every group taken in head parts (``ops.HEAD_PARTS``: G 48) over the parts
+and the dK/dV kernel's warps a block (``b1bwd``), B2 with the cache cut
 for 1-4 blocks an SM (``b2``), B3a's forward over rows per program and
 warps (``fwd``), its backward also over pipeline stages and programs per SM
 (``bwd``).  Prints one JSON object per line; ``--out`` writes them to a
@@ -135,6 +139,68 @@ def time_b4bwd(torch, timer, gen, emit):
         torch.cuda.empty_cache()
 
 
+def flash_inputs(torch, gen, case):
+    """q, k, v, dout (bf16) of a phase 3 B1 case, the mask, and the forward's
+    out and lse."""
+    from repro_torch.kernels.flash_attention import ops
+
+    _, b, s, hq, hkv, d, causal, window = case
+    sq, sk = s if isinstance(s, tuple) else (s, s)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, dout = rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), rnd(b, sq, hq, d)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal, window)
+    return (q, k, v, out, lse, dout, causal, window)
+
+
+def time_b1bwd(torch, timer, gen, emit):
+    from repro_torch.kernels.flash_attention import ops
+
+    for case in cs.FLASH_CASES:
+        if case[0] in cs.FLASH_FORWARD_ONLY:
+            continue
+        args = flash_inputs(torch, gen, case)
+        row = dict(kernel="B1 bwd", case=case[0], B=case[1], S=case[2], Hq=case[3], Hkv=case[4],
+                   D=case[5], head_parts=getattr(ops, "HEAD_PARTS", {}).get(case[3] // case[4], 1))
+        try:
+            ops.flash_attention_bwd(*args)
+        except NotImplementedError as e:
+            emit(**row, error=str(e)[:200])
+            continue
+        emit(**row, ms=timer(lambda: ops.flash_attention_bwd(*args)))
+        del args
+        torch.cuda.empty_cache()
+
+
+def sweep_b1bwd(torch, timer, gen, emit):
+    """Every head-part count P (G / P heads a part, at most the 32 rows of a
+    dK/dV tile) and 8 or 4 warps a dK/dV block (D 128), at each case whose
+    group is taken in parts; each one's gradients against the first one's."""
+    from repro_torch.kernels.flash_attention import ops
+
+    saved = dict(ops.HEAD_PARTS), dict(ops.DKV_WARPS)
+    for case in cs.FLASH_CASES:
+        g = case[3] // case[4]
+        if g not in ops.HEAD_PARTS or case[0] in cs.FLASH_FORWARD_ONLY:
+            continue
+        args = flash_inputs(torch, gen, case)
+        first = None
+        for parts in [p for p in range(2, g + 1) if g % p == 0 and g // p <= 32]:
+            for warps in (8, 4) if case[5] == 128 else (0,):
+                ops.HEAD_PARTS[g], ops.DKV_WARPS[g] = parts, warps
+                grads = ops.flash_attention_bwd(*args)
+                first = first or grads
+                diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(grads, first))
+                emit(sweep="B1 bwd", case=case[0], head_parts=parts, warps=warps,
+                     ms=timer(lambda: ops.flash_attention_bwd(*args)), max_diff_vs_first=diff)
+        del args, first
+        torch.cuda.empty_cache()
+    ops.HEAD_PARTS.clear(), ops.DKV_WARPS.clear()
+    ops.HEAD_PARTS.update(saved[0]), ops.DKV_WARPS.update(saved[1])
+
+
 def sweep_decode(torch, timer, gen, emit):
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -219,8 +285,9 @@ def sweep_rmsnorm(torch, timer, gen, emit, which):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--kernels", default="b2,b3a", help="comma-separated: b2, b3a, b4bwd")
-    ap.add_argument("--sweep", default="", help="comma-separated: b2, fwd, bwd")
+    ap.add_argument("--kernels", default="b2,b3a",
+                    help="comma-separated: b1bwd, b2, b3a, b4bwd")
+    ap.add_argument("--sweep", default="", help="comma-separated: b1bwd, b2, fwd, bwd")
     ap.add_argument("--out")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -246,6 +313,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     kernels = set(filter(None, args.kernels.split(",")))
+    if "b1bwd" in kernels:
+        time_b1bwd(torch, timer, gen, emit)
     if "b2" in kernels:
         time_decode(torch, timer, gen, emit)
     if "b3a" in kernels:
@@ -253,6 +322,8 @@ def main() -> int:
     if "b4bwd" in kernels:
         time_b4bwd(torch, timer, gen, emit)
     sweeps = set(filter(None, args.sweep.split(",")))
+    if "b1bwd" in sweeps:
+        sweep_b1bwd(torch, timer, gen, emit)
     if "b2" in sweeps:
         sweep_decode(torch, timer, gen, emit)
     if sweeps & {"fwd", "bwd"}:
