@@ -94,7 +94,6 @@ struct FlashArgs {
   int dtype;  // 0 = float32, 1 = bfloat16
   int batch, seq_q, seq_k, n_kv_heads, group, head_dim, causal, window;
   int head_parts;  // bf16 dK/dV: the group's heads in this many parts (1: whole)
-  int dkv_warps;   // bf16 dK/dV at D 128: 4 or 8 warps a block (0: 8)
   float scale;
   const void* q;
   const void* k;
@@ -979,13 +978,12 @@ __global__ void __launch_bounds__(M * 2, D <= 80 ? 2 : 1) flash_bwd_dq_mma_kerne
 // and dV; q tiles of MR rows (MR/GP positions x the part's GP = G/P heads)
 // come through a ring of two stages.  Up to D 80 the accumulators fit 128
 // registers (a few spill), so 4-warp blocks run four to an SM; D 128 and
-// 256 need ~240, one 8-warp block an SM (or two 4-warp ones at D 128).  On
-// the H100 at the training shape the first is 6.6 % faster than 8-warp
-// blocks at one an SM.
-template <int D, int NW_ = (D <= 80 ? 4 : 8)>
+// 256 need ~240, one 8-warp block an SM.  On the H100 at the training
+// shape the first is 6.6 % faster than 8-warp blocks at one an SM.
+template <int D>
 struct DkvCfg {
-  static constexpr int NW = NW_, NT = NW * 32;
-  static constexpr int MIN_BLOCKS = D <= 80 ? 4 : 8 / NW;
+  static constexpr int NW = D <= 80 ? 4 : 8, NT = NW * 32;
+  static constexpr int MIN_BLOCKS = D <= 80 ? 4 : 1;
   static constexpr int SPLIT = D > 128 ? 2 : 1;  // D 256: two warps per 16 keys
   static constexpr int BKV = 16 * NW / SPLIT;
   static constexpr int MR = 32;
@@ -995,10 +993,10 @@ struct DkvCfg {
       static_cast<size_t>(2 * BKV + 4 * MR) * LD * sizeof(bf16) + 4 * MR * sizeof(float);
 };
 
-template <int D, int NW>
-__global__ void __launch_bounds__(DkvCfg<D, NW>::NT, DkvCfg<D, NW>::MIN_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::NT, DkvCfg<D>::MIN_BLOCKS)
     flash_bwd_dkv_mma_kernel(const FlashArgs a) {
-  using C = DkvCfg<D, NW>;
+  using C = DkvCfg<D>;
   constexpr int BKV = C::BKV, MR = C::MR, DC = C::DC, LD = C::LD, NN = MR / 8, DN = DC / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][LD]
@@ -1246,28 +1244,17 @@ int fwd_bf16(const FlashArgs& a) {
   return static_cast<int>(fwd_mma<D, 64>(a));
 }
 
-template <int D, int NW>
-cudaError_t dkv_mma(const FlashArgs& a) {
-  using KV = DkvCfg<D, NW>;
-  const dim3 grid(a.batch * a.n_kv_heads * a.head_parts, cdiv(a.seq_k, KV::BKV));
-  return launch(flash_bwd_dkv_mma_kernel<D, NW>, grid, KV::NT, KV::SMEM, a);
-}
-
 template <int D>
 int bwd_bf16(const FlashArgs& a) {
-  // every part's tile must hold a position, the parts need their scratch,
-  // and only D 128 has a choice of warps
-  const bool warps_ok = a.dkv_warps == 0 || (D == 128 && (a.dkv_warps == 4 || a.dkv_warps == 8));
+  // every part's tile must hold a position, and the parts need their scratch
   if (a.head_parts < 1 || a.group % a.head_parts || a.group / a.head_parts > DkvCfg<D>::MR ||
-      (a.head_parts > 1 && a.dkv_part == nullptr) || !warps_ok)
+      (a.head_parts > 1 && a.dkv_part == nullptr))
     return -1;
   cudaError_t err = launch_delta<bf16, D>(a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (D == 128) {
-    err = a.dkv_warps == 4 ? dkv_mma<D, 4>(a) : dkv_mma<D, 8>(a);
-  } else {
-    err = dkv_mma<D, DkvCfg<D>::NW>(a);
-  }
+  using KV = DkvCfg<D>;
+  const dim3 grid(a.batch * a.n_kv_heads * a.head_parts, cdiv(a.seq_k, KV::BKV));
+  err = launch(flash_bwd_dkv_mma_kernel<D>, grid, KV::NT, KV::SMEM, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a.head_parts > 1) {
     const long long chunks = static_cast<long long>(a.batch) * a.seq_k * a.n_kv_heads * (D / 4);

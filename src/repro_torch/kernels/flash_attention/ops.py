@@ -19,22 +19,16 @@ import torch
 from .. import build, count_launch
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-#: the instances the CUDA source is compiled for (the group is a runtime
-#: argument; G 48 is granite-34b's 48 query heads over one kv head)
+#: the instances the CUDA source is compiled for, both ways (the group is a
+#: runtime argument; G 48 is granite-34b's 48 query heads over one kv head)
 HEAD_DIMS = (64, 80, 128, 256)
 GROUPS = (1, 2, 3, 4, 8, 48)
-#: the groups the backward kernels take: every one of the forward's
-BWD_GROUPS = GROUPS
 #: the bf16 dK/dV kernel's head parts by group: its 32-row query tiles hold
 #: 32 / (G / P) positions of the G / P heads of one part (G 48: none whole),
 #: each part writes fp32 scratch, and a fold kernel sums the parts in order.
 #: G 48 takes 6 parts of 8 heads, the fastest of P 2-48 at granite-34b's
 #: training shape on the H100 (tools/time_port_kernels.py --sweep b1bwd)
 HEAD_PARTS = {48: 6}
-#: warps a block of the bf16 dK/dV kernel by group at D 128: 8 (128 keys a
-#: block, one block an SM) where a group is not listed, or 4 (64 keys, two);
-#: the sweep sets it, and 8 was the faster at the training shape
-DKV_WARPS = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _Strides = ctypes.c_longlong * 3
@@ -46,7 +40,7 @@ class FlashArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_int) for n in (
             "dtype", "batch", "seq_q", "seq_k", "n_kv_heads", "group", "head_dim",
-            "causal", "window", "head_parts", "dkv_warps")]
+            "causal", "window", "head_parts")]
         + [("scale", ctypes.c_float)]
         + [(n, ctypes.c_void_p) for n in (
             "q", "k", "v", "o", "dout", "out", "dq", "dk", "dv", "lse", "delta", "dkv_part")]
@@ -135,7 +129,7 @@ def _fwd_cuda(q, k, v, causal, window, scale):
 
 def _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale):
     _check(q, k, v)
-    b, sq, hq, d = q.shape
+    b, sq, hq, _ = q.shape
     g = hq // k.shape[2]
     if dout.device != q.device or dout.dtype != q.dtype:
         raise TypeError("flash_attention: dout must match q's device and dtype")
@@ -151,7 +145,6 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale):
     if parts > 1:
         scratch = torch.empty((parts, 2, *k.shape), dtype=torch.float32, device=q.device)
         a.head_parts, a.dkv_part = parts, scratch.data_ptr()
-    a.dkv_warps = DKV_WARPS.get(g, 0) if d == 128 else 0
     _run("flash_attention_bwd_launch", a)
     count_launch(flash_attention, "backward_launches")
     return dq, dk, dv

@@ -255,3 +255,19 @@ def test_rmsnorm_backward_pipeline_fits_shared_memory(d, item):
     assert 1 <= stages <= ops.BWD_STAGES
     assert (stages - 1) * per_stage + 1024 <= ops.SMEM_BYTES
     assert stages == ops.BWD_STAGES or stages * per_stage + 1024 > ops.SMEM_BYTES
+
+
+def test_rmsnorm_backward_stages_cover_what_triton_asked_for():
+    """At fp32 width 6144 and 4 stages Triton asked an H100 for 294,944 bytes
+    of shared memory (3 staged tiles of x and dy, 98,304 bytes each, and 32
+    more) and the launch was refused: the formula's estimate at 4 stages is
+    no smaller than that, and the launch takes 3 stages."""
+    from repro_torch.kernels.rmsnorm import ops
+
+    asked_at_4_stages = 294_944
+    assert asked_at_4_stages > ops.SMEM_BYTES
+    a, bb = ops._blocks(6144)
+    per_stage = 2 * ops.BWD_ROWS * (a + bb) * 4
+    assert (ops.BWD_STAGES - 1) * per_stage + 1024 >= asked_at_4_stages
+    assert ops.BWD_STAGES == 4 and ops._bwd_stages(ops.BWD_ROWS, 6144, 4) == 3
+    assert 2 * per_stage + 32 <= ops.SMEM_BYTES  # 3 stages, by Triton's count

@@ -176,11 +176,11 @@ def time_b1bwd(torch, timer, gen, emit):
 
 def sweep_b1bwd(torch, timer, gen, emit):
     """Every head-part count P (G / P heads a part, at most the 32 rows of a
-    dK/dV tile) and 8 or 4 warps a dK/dV block (D 128), at each case whose
-    group is taken in parts; each one's gradients against the first one's."""
+    dK/dV tile) at each case whose group is taken in parts; each one's
+    gradients against the first one's."""
     from repro_torch.kernels.flash_attention import ops
 
-    saved = dict(ops.HEAD_PARTS), dict(ops.DKV_WARPS)
+    saved = dict(ops.HEAD_PARTS)
     for case in cs.FLASH_CASES:
         g = case[3] // case[4]
         if g not in ops.HEAD_PARTS or case[0] in cs.FLASH_FORWARD_ONLY:
@@ -188,17 +188,16 @@ def sweep_b1bwd(torch, timer, gen, emit):
         args = flash_inputs(torch, gen, case)
         first = None
         for parts in [p for p in range(2, g + 1) if g % p == 0 and g // p <= 32]:
-            for warps in (8, 4) if case[5] == 128 else (0,):
-                ops.HEAD_PARTS[g], ops.DKV_WARPS[g] = parts, warps
-                grads = ops.flash_attention_bwd(*args)
-                first = first or grads
-                diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(grads, first))
-                emit(sweep="B1 bwd", case=case[0], head_parts=parts, warps=warps,
-                     ms=timer(lambda: ops.flash_attention_bwd(*args)), max_diff_vs_first=diff)
+            ops.HEAD_PARTS[g] = parts
+            grads = ops.flash_attention_bwd(*args)
+            first = first or grads
+            diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(grads, first))
+            emit(sweep="B1 bwd", case=case[0], head_parts=parts,
+                 ms=timer(lambda: ops.flash_attention_bwd(*args)), max_diff_vs_first=diff)
         del args, first
         torch.cuda.empty_cache()
-    ops.HEAD_PARTS.clear(), ops.DKV_WARPS.clear()
-    ops.HEAD_PARTS.update(saved[0]), ops.DKV_WARPS.update(saved[1])
+    ops.HEAD_PARTS.clear()
+    ops.HEAD_PARTS.update(saved)
 
 
 def sweep_decode(torch, timer, gen, emit):
