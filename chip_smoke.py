@@ -40,15 +40,17 @@ Phases, each of which must pass (any failure exits non-zero):
                 tokens, one more eval.  Launch counters prove that every
                 attention and every norm, forward, recompute and backward, went
                 through the kernels; the loss must fall;
-  6. ssm     -- mamba2-370m and zamba2-1.2b at full width (random weights from
-                --seed) served from checkpoint DU files by DecodeEngine: 4
-                prompts of 489 tokens plus 24 new tokens (512 fed tokens, two
-                SSD chunks of 256).  Decode logits are held against the
-                teacher-forced forward, which runs the SSD chunk-scan kernel in
-                every mamba layer, at positions either side of the chunk
-                boundary; layer 0's final SSM state against the engine's; then
-                a 32768-token prefill of mamba2-370m (``forward(last_only=
-                True)``).  Launch counters prove every path's kernels ran;
+  6. ssm     -- mamba2-370m and zamba2-1.2b at full width, cut of depth only
+                to SSM_SERVE_LAYERS (24 of 48, 20 of 38) for time (random
+                weights from --seed), served from checkpoint DU files by
+                DecodeEngine: 4 prompts of 489 tokens plus 24 new tokens
+                (512 fed tokens, two SSD chunks of 256).  Decode logits are
+                held against the teacher-forced forward, which runs the SSD
+                chunk-scan kernel in every mamba layer, at positions either
+                side of the chunk boundary; layer 0's final SSM state against
+                the engine's; then a 32768-token prefill of mamba2-370m at
+                full depth (``forward(last_only=True)``, weights drawn on the
+                card).  Launch counters prove every path's kernels ran;
   7. pilot   -- the Pilot-Data runtime on the card (one Session, two pods,
                 two sim:// pilots, two mem:// Pilot-Data): h2o-
                 danube-1.8b, at every width but cut to PILOT_TRAIN_LAYERS
@@ -118,14 +120,31 @@ Phases, each of which must pass (any failure exits non-zero):
                 remat gradients must equal those without within one bf16 ulp
                 of each leaf's max, and at 1 layer in fp32 every gradient leaf
                 must be within SSM_PLAIN_GRAD_TOL of the plain versions';
- 14. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+ 14. dist-train -- the distributed layer (``repro_torch.distributed``) on
+                the card: a one-rank NCCL process group and a (data 1,
+                model 1) mesh; granite-moe-3b-a800m at every published
+                width cut to DIST_LAYERS of its 32 layers, trained
+                DIST_STEPS steps on phase 5's batch and schedule through the
+                sharded step (params and AdamW state as DTensors of the
+                sharding rules' specs, the kernels inside local_map regions,
+                the MoE layers on the expert-parallel path, whose
+                all_to_all_single exchanges are counted) with every plain
+                version refused, launches exact and equal to the unsharded
+                step's; loss, grad norm and every updated leaf held to the
+                unsharded step's on the same weights and batch bit for bit;
+                then the int8 compressed all-reduce (``compress_tree_psum``)
+                over NCCL on the loss's gradient tree, twice (the second
+                with the first's residual), held to its plain version
+                (quantise, dequantise, the residual) bit for bit;
+ 15. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
 served model; granite-moe's with its MoE layers' share), of one train step
 of each trained model (granite-moe's with its MoE layers' share, and one MoE
 layer's forward and backward timed alone; each SSM model's with B4 forward
-and backward; granite-34b's with B1's backward split into its kernels) and
-of one mamba2-370m prefill.
+and backward; granite-34b's with B1's backward split into its kernels;
+phase 14's unsharded and sharded steps with their kernel counts and NCCL's
+share) and of one mamba2-370m prefill.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -142,6 +161,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -165,6 +185,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 4
 TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
 
 SSM_MODELS = ("mamba2-370m", "zamba2-1.2b")
+# phase 6 serves each model cut of depth only to these layers for time: its
+# decode loops are host-bound (74 / 63 ms a step at full depth on a slow
+# host, 139 s for the phase), and the script must stay under 600 s; the
+# cut keeps every width, the chunk boundary, and zamba2's shared attention
+# block (3 occurrences) and tail; the prefill runs at full depth
+SSM_SERVE_LAYERS = {"mamba2-370m": 24, "zamba2-1.2b": 20}
 SSM_PROMPT_LEN, SSM_NEW_TOKENS, SSM_MAX_LEN, SSM_BATCH = 489, 24, 512, 4
 SSM_CHECK_POSITIONS = (0, 255, 256, 511)  # position 0 first; either side of the chunk boundary
 STATE_TOL = 2e-2  # max |engine state - forward state| over max(1, max |forward state|)
@@ -366,6 +392,12 @@ DENSE_PLAIN_SEQ = 1024
 # plain-version checks at the smallest depth that holds SSM_REMAT_LAYERS
 # layers, a whole stacked group and a tail
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 4096
+# phase 14: MOE_MODEL at every width, cut of depth only to DIST_LAYERS of its
+# 32 layers for time, through the sharded train step at world size 1
+DIST_MODEL = "granite-moe-3b-a800m"
+DIST_LAYERS = 8
+DIST_STEPS = 3
+
 SSM_REMAT_LAYERS = 4
 SSM_PLAIN_GRAD_TOL = 1e-3  # fp32 kernels against fp32 plain versions, of a leaf's max |g|
 
@@ -1269,9 +1301,10 @@ def moe_spans():
     profile can say how much device time the MoE layers take."""
     from torch.profiler import record_function
 
-    from repro_torch.models import moe, transformer
+    from repro_torch.distributed import moe_parallel
+    from repro_torch.models import moe
 
-    saved = (transformer.moe_mlp_local, moe._expert_ffn)
+    saved = (moe_parallel.moe_mlp_local, moe._expert_ffn)
 
     def span(name, fn):
         def call(*a, **k):
@@ -1279,12 +1312,12 @@ def moe_spans():
                 return fn(*a, **k)
         return call
 
-    transformer.moe_mlp_local = span(MOE_SPANS[0], saved[0])
+    moe_parallel.moe_mlp_local = span(MOE_SPANS[0], saved[0])
     moe._expert_ffn = span(MOE_SPANS[1], saved[1])
     try:
         yield
     finally:
-        transformer.moe_mlp_local, moe._expert_ffn = saved
+        moe_parallel.moe_mlp_local, moe._expert_ffn = saved
 
 
 def phase_profile(torch, engine, cache, seq):
@@ -1489,7 +1522,7 @@ def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> f
         train_step(params, opt, batch)
         sync(torch)
         wall = time.perf_counter() - t0
-    groups, total, spans, kernels = {}, 0.0, {}, {}
+    groups, total, spans, kernels, n_kernels = {}, 0.0, {}, {}, 0
     for ev in prof.key_averages():
         if ev.key in ("optimizer",) + MOE_SPANS:  # a span, not a kernel: its kernels' time
             if ev.device_type == torch.autograd.DeviceType.CPU:
@@ -1502,10 +1535,13 @@ def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> f
         if t is None:
             t = ev.self_cuda_time_total
         total += t
+        n_kernels += ev.count
         name = ev.key
         kernels[name] = kernels.get(name, 0.0) + t
         low = name.lower()
-        if "flash_fwd" in name:
+        if "nccl" in low:
+            g = "NCCL collectives"
+        elif "flash_fwd" in name:
             g = "B1 flash_attention forward (CUDA)"
         elif "flash_bwd" in name:
             part = ("dK/dV" if "dkv" in name else "dQ" if "_dq_" in name
@@ -1531,7 +1567,7 @@ def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> f
             g = "other: " + name[:60]
         groups[g] = groups.get(g, 0.0) + t
     log(f"profile {tag}: one step, wall {wall:.3f} s, device busy {total / 1e6:.3f} s "
-        f"({100 * total / 1e6 / wall:.1f} %)")
+        f"({100 * total / 1e6 / wall:.1f} %), {n_kernels} device kernels")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1])[:14]:
         log(f"profile {tag}:   {t / 1e6:8.4f} s  {g}")
     for name, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
@@ -1609,7 +1645,8 @@ def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = Fa
     from repro_torch.models.transformer import _group_slice
     from repro_torch.serving import DecodeEngine
 
-    cfg = get_config(model)
+    full = get_config(model)
+    cfg = dataclasses.replace(full, n_layers=SSM_SERVE_LAYERS.get(model, full.n_layers))
     api = build_model(cfg, device=DEVICE)
     recorded = {}
 
@@ -1629,7 +1666,7 @@ def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = Fa
     sync(torch)
     kinds = cfg.layer_kinds()
     log(f"ssm: {cfg.name} ({kinds.count('mamba')} mamba + {len(kinds) - kinds.count('mamba')} "
-        f"attention layers, d_model {cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} SSD heads of "
+        f"attention layers of its {full.n_layers}, d_model {cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} SSD heads of "
         f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, vocab {cfg.vocab_size}) through "
         f"{n_bytes / 2**30:.2f} GiB of checkpoint files in {time.perf_counter() - t0:.1f} s")
 
@@ -1711,6 +1748,12 @@ def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = Fa
 
     if prefill_len:
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, prefill_len))).to(DEVICE)
+        if cfg != full:  # the prefill at full depth, its weights drawn on the card
+            del engine
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+            api = build_model(full, device=DEVICE)
+            engine = types.SimpleNamespace(params=api.init(seed=seed))
         runs = []
         with torch.no_grad():
             for _ in range(2):  # the first pays first-use allocations
@@ -1720,12 +1763,13 @@ def phase_ssm(torch, seed, smi, model: str, prefill_len: int, profile: bool = Fa
                 logits = api.forward(engine.params, tokens, last_only=True)
                 sync(torch)
                 runs.append(time.perf_counter() - t0)
-                check_launches(before, path_launches(cfg, "forward"), f"{model} prefill")
+                check_launches(before, path_launches(full, "forward"), f"{model} prefill")
         if logits.shape != (1, 1, cfg.vocab_size) or not bool(logits.isfinite().all()):
             raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
-        out.update(prefill_len=prefill_len, prefill_ms=runs[1] * 1e3,
+        out.update(prefill_len=prefill_len, prefill_layers=full.n_layers, prefill_ms=runs[1] * 1e3,
                    prefill_tokens_per_s=prefill_len / runs[1], prefill_first_ms=runs[0] * 1e3)
-        log(f"ssm: {model}: prefill of {prefill_len} tokens at batch 1 (forward, last_only): "
+        log(f"ssm: {model}: prefill of {prefill_len} tokens at batch 1 ({full.n_layers} layers, "
+            f"forward, last_only): "
             f"{runs[1] * 1e3:.3f} ms, {prefill_len / runs[1]:.1f} tokens/s (first run "
             f"{runs[0] * 1e3:.3f} ms) on {smi}")
         if profile:
@@ -2922,6 +2966,212 @@ def phase_dense_train(torch, seed, smi, profile: bool = False):
     return launches, out
 
 
+# ------------------------------------------------------------ phase 14
+def dist_group(torch) -> None:
+    """A one-rank default process group (NCCL on the card, gloo on the CPU)
+    that meets on a free localhost port."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        rank=0, world_size=1)
+
+
+def dist_steps(torch, step, params, opt, batch, tag: str, per_step: dict):
+    """DIST_STEPS steps, every plain version refused, each step's launches
+    exact; returns (params, opt, history, step_s, launches, EP exchanges,
+    peak GiB), the counts set to 0 just before the steps and read just
+    after.  The peak is that of these steps with this run's own params and
+    AdamW state resident and nothing else: the peak above what was
+    allocated when the steps began, plus the bytes of the two trees (the
+    other run's state is resident too)."""
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.models import moe
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    state = sum(local(t).numel() * local(t).element_size()
+                for tree in (params, opt) for _, t in flatten_tree(tree))
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    sync(torch)
+    start = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    torch.cuda.reset_peak_memory_stats()
+    history, step_s = [], []
+    reset_counts()
+    moe.moe_mlp_ep.exchanges = 0
+    with plain_versions_forbidden():
+        for i in range(DIST_STEPS):
+            before = read_counts()
+            sync(torch)
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            sync(torch)
+            step_s.append(time.perf_counter() - t0)
+            check_launches(before, per_step, f"dist-train {tag}: step {i}")
+            history.append({k: float(v) for k, v in metrics.items()})
+    launches, exchanges = read_counts(), moe.moe_mlp_ep.exchanges
+    peak = (torch.cuda.max_memory_allocated() - start + state) / 2**30
+    return params, opt, history, step_s, launches, exchanges, peak
+
+
+def compression_check(torch, grads: dict, group) -> dict:
+    """``compress_tree_psum`` over ``group`` (one rank) on ``grads``, twice,
+    the second with the first's residual; each output and residual held bit
+    for bit to the plain version: quantise, dequantise, the residual."""
+    from repro_torch.optim.compression import (compress_tree_psum, dequantize_int8,
+                                               quantize_int8)
+    from repro_torch.checkpoint import flatten_tree
+
+    errors, times, numel = None, [], sum(g.numel() for g in grads.values())
+    for rnd in range(2):
+        sync(torch)
+        t0 = time.perf_counter()
+        out, new = compress_tree_psum(grads, group, errors)
+        sync(torch)
+        times.append(time.perf_counter() - t0)
+        out, new = dict(flatten_tree(out)), dict(flatten_tree(new))
+        for path, g in grads.items():
+            x = g.float() + errors[path] if errors is not None else g.float()
+            q, scale = quantize_int8(x)
+            deq = dequantize_int8(q, scale)
+            if not (torch.equal(out[path], deq) and torch.equal(new[path], x - deq)):
+                raise AssertionError(f"dist-train: compress_tree_psum round {rnd} of {path} is "
+                                     f"not its plain version's")
+        errors = new
+    log(f"dist-train: compress_tree_psum over NCCL (one rank) on the gradient tree ({len(grads)} "
+        f"leaves, {numel / 1e9:.3f} B values): {times[0]:.3f} s, then {times[1]:.3f} s with the "
+        f"residual; both rounds equal their plain versions (quantise, dequantise, residual) bit "
+        f"for bit")
+    return dict(leaves=len(grads), values=numel, s=times)
+
+
+def phase_dist_train(torch, seed, smi, profile: bool = False):
+    """DIST_MODEL at every published width cut to DIST_LAYERS layers, its
+    weights drawn on the card, through the sharded train step on a (data 1,
+    model 1) mesh over a one-rank NCCL group, held to the unsharded step on
+    the same weights and batch; then the compressed all-reduce.  With
+    ``profile``, one more step of each is broken down by kernel group.
+    Returns (launches, summary)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import flatten_tree, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (DistContext, batch_specs, distribute_tree, distribution,
+                                         opt_specs, param_specs)
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.optim.adamw import tree_get
+    from repro_torch.training import make_train_step
+
+    full = get_config(DIST_MODEL)
+    cfg = dataclasses.replace(full, n_layers=DIST_LAYERS)
+    m = cfg.moe
+    api = build_model(cfg, device=DEVICE, ep=1)
+    t0 = time.perf_counter()
+    params = api.init(seed=seed)
+    n_params = sum(t.numel() for _, t in flatten_tree(params))
+    batch = token_batch(torch, cfg, seed, TRAIN_BATCH, TRAIN_SEQ)
+    sync(torch)
+    log(f"dist-train: {cfg.name} ({cfg.n_layers} of its {full.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, {m.n_experts} "
+        f"experts top-{m.top_k} of d_ff {m.d_ff_expert}, {n_params / 1e9:.3f} B params) drawn on "
+        f"the card in {time.perf_counter() - t0:.1f} s; {DIST_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    kw = dict(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+              microbatches=1, remat=True)
+    per_step = train_launch_schedule(cfg)
+    n_moe = sum(kind in ("moe", "swa_moe") for kind in cfg.layer_kinds())
+    t0 = time.perf_counter()
+    dist_group(torch)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=DEVICE)
+        ctx = DistContext(mesh, ("data",))
+        log(f"dist-train: process group {dist.get_backend()} of {dist.get_world_size()} rank, "
+            f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the unsharded step first, on a copy of the weights
+        ref_p = tree_map(lambda t: t.detach().clone(), params)
+        ref_step = make_train_step(api, **kw)
+        ref_p, ref_o, ref_hist, ref_s, ref_launches, ref_ex, ref_peak = dist_steps(
+            torch, ref_step, ref_p, init_adamw(ref_p), batch, "unsharded", per_step)
+
+        opt = init_adamw(params)
+        p_specs = param_specs(params, cfg, ctx)
+        opt = distribute_tree(opt, opt_specs(opt, p_specs, cfg, ctx), ctx)
+        params = distribute_tree(params, p_specs, ctx)
+        step = make_train_step(api, ctx=ctx, **kw)
+        params, opt, hist, step_s, launches, exchanges, peak = dist_steps(
+            torch, step, params, opt, batch, "sharded", per_step)
+
+        expected = {k: DIST_STEPS * v for k, v in per_step.items()}
+        if launches != expected or ref_launches != expected:
+            raise AssertionError(f"dist-train: launches {launches} (unsharded {ref_launches}) != "
+                                 f"{expected}")
+        # the EP path: an exchange out and one back a MoE layer, in the
+        # forward, in remat's recompute and in the backward
+        if exchanges != DIST_STEPS * 6 * n_moe or ref_ex != 0:
+            raise AssertionError(f"dist-train: {exchanges} EP exchanges (unsharded {ref_ex}) != "
+                                 f"{DIST_STEPS * 6 * n_moe}")
+        for i, (h, r) in enumerate(zip(hist, ref_hist)):
+            if h != r or not all(math.isfinite(v) for v in h.values()):
+                raise AssertionError(f"dist-train: step {i} metrics {h} != unsharded {r}")
+        equal = 0
+        for tree, ref_tree, name in ((params, ref_p, "params"), (opt, ref_o, "opt")):
+            for path, t in flatten_tree(tree):
+                a, b = t.full_tensor(), tree_get(ref_tree, path)
+                if not torch.equal(a, b):
+                    diff = (a.float() - b.float()).abs().max().item()
+                    raise AssertionError(f"dist-train: {name}/{path} differs from the unsharded "
+                                         f"step's by {diff:.3e}")
+                equal += 1
+        del a, b
+        s_sh = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+        s_un = statistics.median(ref_s[1:]) if len(ref_s) > 1 else ref_s[0]
+        log(f"dist-train: {DIST_STEPS} sharded steps equal the unsharded ones bit for bit: loss "
+            f"{[h['loss'] for h in hist]}, grad norm {[h['grad_norm'] for h in hist]}, all "
+            f"{equal} param and opt leaves; launches {launches} ({per_step} a step, as "
+            f"unsharded); {exchanges} EP all_to_all_single exchanges")
+        log(f"dist-train: {TRAIN_BATCH * TRAIN_SEQ} tokens/step: sharded {s_sh:.3f} s/step, peak "
+            f"device memory {peak:.2f} GiB (its own state and steps); unsharded {s_un:.3f} "
+            f"s/step, {ref_peak:.2f} GiB "
+            f"(median of steps 1-{DIST_STEPS - 1}; step 0 {step_s[0]:.3f} / {ref_s[0]:.3f} s) on "
+            f"{smi}")
+        if profile:  # one more step of each, past the checked ones
+            phase_profile_train(torch, ref_p, ref_o, batch, ref_step, "dist-train unsharded")
+            phase_profile_train(torch, params, opt, batch, step, "dist-train sharded")
+        del ref_p, ref_o
+
+        # the compressed all-reduce on the gradient tree of the sharded loss
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        leaves = flatten_tree(params)
+        tensors = [t.requires_grad_(True) for _, t in leaves]
+        spec = batch_specs({k: (tuple(x.shape), x.dtype) for k, x in batch.items()}, ctx)
+        with distribution(ctx):
+            loss, _ = api.loss_fn(params, distribute_tree(batch, spec, ctx), remat=True)
+            grads = torch.autograd.grad(loss, tensors)
+        del loss
+        local = {path: g.to_local() for (path, _), g in zip(leaves, grads)}
+        del grads
+        comp = compression_check(torch, local, mesh.get_group("data"))
+        del local, params, opt
+    finally:
+        dist.destroy_process_group()
+    return launches, dict(layers=cfg.n_layers, params=n_params, history=hist, step_s=step_s,
+                          s_per_step=s_sh, peak_gib=peak, unsharded_s_per_step=s_un,
+                          unsharded_peak_gib=ref_peak, ep_exchanges=exchanges, leaves_equal=equal,
+                          compression=comp)
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2992,6 +3242,10 @@ def main() -> int:
     dense_train_launches, dense_train = phase_dense_train(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"dense-train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist_launches, dist_train = phase_dist_train(torch, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    log(f"dist-train: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -3014,7 +3268,8 @@ def main() -> int:
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
                "pilot": pilot_launches, "moe": moe_launches_all, "moe-train": moe_train_launches,
                "whisper": whisper_launches, "ssm-train": ssm_train_launches,
-               "dense-serve": dense_launches, "dense-train": dense_train_launches}
+               "dense-serve": dense_launches, "dense-train": dense_train_launches,
+               "dist-train": dist_launches}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]
@@ -3042,6 +3297,7 @@ def main() -> int:
     log("ssm-train: " + json.dumps(ssm_train))
     log("dense-serve: " + json.dumps(dense))
     log("dense-train: " + json.dumps(dense_train))
+    log("dist-train: " + json.dumps(dist_train))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

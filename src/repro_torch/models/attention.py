@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.context import is_dtensor
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import apply_rope, dense, dt, init_dense
@@ -107,23 +108,33 @@ def attention_block(
     positions_k: Optional[torch.Tensor] = None,  # [B, s_cache]: ring_positions
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full attention sub-block: qkv proj -> rope -> attention -> out proj.
+    On ``DTensor`` s it runs on each rank's heads
+    (:func:`repro_torch.distributed.tensor_parallel.attention_block`).
 
     With ``cache``/``cache_index``/``positions_k``: single-token decode -- x
     is [B, 1, d].  Unlike the JAX package, which returns an updated copy, the
     cache tensors are written in place (at ``cache_index % s_cache``, so
     window-length caches act as ring buffers) and the same dict is returned.
     """
+    if is_dtensor(x):
+        if cache is not None:
+            raise NotImplementedError("sharded decode is not ported yet")
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.attention_block(
+            params, x, positions, cfg, causal=causal, window=window, rope=rope)
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    q = dense(x, params["q"]).reshape(b, s, cfg.n_heads, hd)
-    k = dense(x, params["k"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(x, params["v"]).reshape(b, s, cfg.n_kv_heads, hd)
+    # heads from the weights: a tensor-parallel region holds a share of them
+    q = dense(x, params["q"]).reshape(b, s, -1, hd)
+    k = dense(x, params["k"]).reshape(b, s, -1, hd)
+    v = dense(x, params["v"]).reshape(b, s, -1, hd)
     q = apply_rope(q, *rope)
     k = apply_rope(k, *rope)
 
     if cache is None:  # positions are arange(S): the kernel masks by index
         out = flash_attention(q, k, v, causal=causal, window=window)
-        return dense(out.reshape(b, s, cfg.n_heads * hd), params["o"]), None
+        return dense(out.reshape(b, s, -1), params["o"]), None
 
     if cache_index is None or positions_k is None or s != 1:
         raise ValueError(
@@ -141,7 +152,7 @@ def attention_block(
         cache["v"][:, write_idx] = v[:, 0].to(cache["v"].dtype)
         ck, cv = cache["k"], cache["v"]
     out = decode_attention(q, ck, cv, positions[:, 0], positions_k, window=window)
-    return dense(out.reshape(b, s, cfg.n_heads * hd), params["o"]), cache
+    return dense(out.reshape(b, s, -1), params["o"]), cache
 
 
 def cross_attention_block(

@@ -4,7 +4,9 @@ Conventions as in the JAX package: params are nested dicts of tensors;
 activations compute in ``cfg.compute_dtype``, norm statistics and RoPE in
 fp32.  Each ``init_*`` takes the device and a seeded ``torch.Generator`` on
 it and draws with the JAX package's scales (the bits differ from
-``jax.random``'s).
+``jax.random``'s).  On ``DTensor`` s (a sharded run, see
+:mod:`repro_torch.distributed`) the norm, the MLP, the embedding and the CE
+run as local regions of :mod:`repro_torch.distributed.tensor_parallel`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.context import is_dtensor
 from ..kernels.rmsnorm.ops import rmsnorm
 
 
@@ -24,7 +27,26 @@ def dt(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+class _MetaGenerator:
+    """Stands in for a generator on the meta device, which torch has not:
+    the init functions then make shapes and dtypes only."""
+
+    device = torch.device("meta")
+
+
+def generator(device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (a stand-in
+    on the meta device)."""
+    if torch.device(device).type == "meta":
+        return _MetaGenerator()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (w * scale).to(dtype)
 
@@ -36,6 +58,10 @@ def init_rmsnorm(d: int, dtype, device, lead: Tuple[int, ...] = ()) -> Dict:
 
 def rms_norm(x: torch.Tensor, params: Dict, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with (1+scale) parameterization, through the rmsnorm kernel."""
+    if is_dtensor(x):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.rms_norm(x, params, eps)
     return rmsnorm(x, params["scale"], eps)
 
 
@@ -98,6 +124,10 @@ def init_mlp(
 
 
 def mlp(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    if is_dtensor(x):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.mlp(x, params, cfg)
     if cfg.mlp_type == "swiglu":
         return dense(
             F.silu(dense(x, params["gate"])) * dense(x, params["up"]), params["down"]
@@ -123,6 +153,10 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def embed(tokens: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    if is_dtensor(params["table"]):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.embed(tokens, params, cfg)
     x = params["table"][tokens].to(dt(cfg.compute_dtype))
     # gemma-style sqrt(d) scaling; the factor is rounded to x's dtype first,
     # as jnp.asarray(..., dtype=x.dtype) does in the JAX package (a 0-dim CPU
@@ -131,6 +165,10 @@ def embed(tokens: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def unembed(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    if is_dtensor(x):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.unembed(x, params, cfg)
     if cfg.tie_embeddings:
         logits = x @ params["table"].to(x.dtype).T
     else:
@@ -152,6 +190,24 @@ def chunked_cross_entropy(
     NLL sum, and is recomputed in the backward pass (non-reentrant
     ``torch.utils.checkpoint``, as ``jax.checkpoint(step)`` does in the JAX
     package), so at most one chunk's [B, chunk, V] fp32 logits are live."""
+    if is_dtensor(x):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.chunked_cross_entropy(x, params, cfg, labels, mask, chunk)
+    nll_sum, count = nll_sum_and_count(x, params, cfg, labels, mask, chunk)
+    return nll_sum / count.clamp_min(1.0)
+
+
+def nll_sum_and_count(
+    x: torch.Tensor,
+    params: Dict,
+    cfg: ModelConfig,
+    labels: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    chunk: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the NLL summed over the masked tokens, their count) of
+    :func:`chunked_cross_entropy`, both fp32 scalars."""
     b, s, _ = x.shape
     c = min(chunk, s)
     if mask is None:
@@ -167,7 +223,7 @@ def chunked_cross_entropy(
     for i in range(0, s, c):
         xc, lc, mc = x[:, i : i + c], labels[:, i : i + c].long(), mask[:, i : i + c].float()
         nll_sum = nll_sum + checkpoint(step, xc, lc, mc, use_reentrant=False)
-    return nll_sum / mask.float().sum().clamp_min(1.0)
+    return nll_sum, mask.float().sum()
 
 
 # -------------------------------------------------------------------- loss

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.context import is_dtensor
 from ..kernels.ssd_scan.ops import ssd
 from .layers import _normal, dt, init_dense, rms_norm
 
@@ -96,6 +97,11 @@ def _gate(y: torch.Tensor, z: torch.Tensor, params: Dict, cfg: ModelConfig) -> t
     return y @ params["out_proj"]["w"].to(y.dtype)
 
 
+def _unsharded(x) -> None:
+    if is_dtensor(x):
+        raise NotImplementedError("sharded execution of the Mamba2 mixer is not ported yet")
+
+
 def mamba_block(
     params: Dict,
     u: torch.Tensor,  # [B, S, d_model]
@@ -104,6 +110,7 @@ def mamba_block(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full Mamba2 mixer; returns (out [B, S, d_model], final_state
     [B, H, P, N] fp32)."""
+    _unsharded(u)
     dims = mamba_dims(cfg)
     b, s, _ = u.shape
     h, p, n, g = dims["n_heads"], dims["head_dim"], dims["d_state"], dims["n_groups"]

@@ -16,14 +16,22 @@ device.  In a training step the two gathers backpropagate as gathers too
 
 The parameter tree is the JAX package's (``router/w`` fp32 [d, E],
 ``gate``/``up`` [E_pad, d, f], ``down`` [E_pad, f, d]), so checkpoints cross
-over unchanged.  The expert-parallel path (``moe_mlp_ep``) is not ported.
+over unchanged; at expert-parallel width ``ep`` the experts are padded to a
+multiple of it with never-routed dummies, as there.
+
+``moe_mlp_ep`` is the expert-parallel body (the JAX ``shard_map`` body): it
+runs on one rank's tokens with that rank's experts and exchanges the
+capacity buffers with ``all_to_all_single`` over the model dim's process
+group; :mod:`repro_torch.distributed.moe_parallel` wraps it in
+``local_map``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
@@ -44,12 +52,14 @@ def padded_experts(cfg: ModelConfig, ep: int) -> int:
 
 
 # ----------------------------------------------------------------- params
-def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Dict:
-    """One MoE layer's params (``lead`` stacks them), with no padding
-    experts: the JAX tree at expert-parallel width 1."""
+def init_moe(
+    gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = (), ep: int = 1
+) -> Dict:
+    """One MoE layer's params (``lead`` stacks them), the experts padded to
+    a multiple of the expert-parallel width ``ep``: the JAX tree at ``ep``."""
     m = _moe(cfg)
     d, f = cfg.d_model, m.d_ff_expert
-    e_pad = padded_experts(cfg, 1)
+    e_pad = padded_experts(cfg, ep)
     pdt = dt(cfg.param_dtype)
 
     def expert_mat(d_in, d_out):
@@ -174,3 +184,62 @@ def moe_mlp_local(
     picked = _GatherRows.apply(expert_out.reshape(e_pad * cap, d), token_slots, None)
     y = (picked * gates[..., None].to(x.dtype)).sum(dim=1)
     return y.reshape(b, s, d), aux
+
+
+# ------------------------------------------------------- expert parallelism
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal chunks along dim 0 over ``group``.
+    Chunk j goes to rank j and rank j's chunk i comes back as chunk j, so
+    the backward is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    moe_mlp_ep.exchanges += 1
+    return out
+
+
+def moe_mlp_ep(
+    params: Dict, x: torch.Tensor, cfg: ModelConfig, group: Optional[dist.ProcessGroup] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel body: x is this rank's token shard [b_l, s_l, d] and
+    ``params`` its experts' slice (the router whole); the experts are split
+    over the ranks of ``group`` (the model dim) in rank order.  Routes and
+    dispatches locally over all ``e_pad * ep`` experts, sends each rank its
+    experts' capacity buffers, runs the FFN on the local experts and sends
+    the results back.  Returns (y [b_l, s_l, d], this rank's aux loss); the
+    caller averages aux over the ranks (the JAX body's ``pmean``)."""
+    b, s, d = x.shape
+    t = b * s
+    ep = dist.get_world_size(group)
+    e_loc = params["gate"].shape[0]
+    e_glob = e_loc * ep
+    x_flat = x.reshape(t, d)
+    # the router is replicated: routing happens where the tokens live
+    gates, expert_idx, aux = _route(x_flat, params, cfg)
+    cap = _capacity(t, cfg)
+    slot_table, token_slots = _dispatch_tables(expert_idx, t, e_glob, cap)
+    send = _GatherRows.apply(x_flat, slot_table, token_slots).reshape(e_glob, cap, d)
+    # [E_glob, C, d] -> rank j's [E_loc, C, d] from every rank: [E_loc, ep*C, d]
+    recv = _AllToAll.apply(send, group).reshape(ep, e_loc, cap, d)
+    recv = recv.transpose(0, 1).reshape(e_loc, ep * cap, d).contiguous()
+    expert_out = _expert_ffn(recv, params, cfg)
+    # the reverse exchange: [E_loc, ep*C, d] -> [E_glob, C, d]
+    back = expert_out.reshape(e_loc, ep, cap, d).transpose(0, 1).contiguous()
+    back = _AllToAll.apply(back, group).reshape(e_glob * cap, d)
+    picked = _GatherRows.apply(back, token_slots, None)
+    y = (picked * gates[..., None].to(x.dtype)).sum(dim=1)
+    return y.reshape(b, s, d), aux
+
+
+moe_mlp_ep.exchanges = 0  # all_to_all_single calls, forward and backward

@@ -54,19 +54,26 @@ def _lm_batch_spec(cfg: ModelConfig, shape: ShapeConfig):
     return spec
 
 
-def build_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda") -> ModelApi:
+def build_model(
+    cfg: ModelConfig, device: Union[str, torch.device] = "cuda", ep: int = 1
+) -> ModelApi:
     """The model's functions on ``device``; raises if it is CUDA and there is
-    none, or if a block kind of the config is not ported yet."""
+    none, or if a block kind of the config is not ported yet.  ``ep``: the
+    expert-parallel width that ``init`` pads the MoE experts for, as the
+    JAX ``build_model(cfg, ep=...)``.  ``device="meta"`` gives ``init`` the
+    tree's shapes and dtypes only (what the sharding rules read)."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
     if cfg.family == "encdec":
         model, init, init_cache = whisper, whisper.init_encdec, whisper.init_encdec_cache
+        init = functools.partial(init, cfg, dev)
     else:
         model, init, init_cache = transformer, transformer.init_lm, transformer.init_lm_cache
+        init = functools.partial(init, cfg, dev, ep=ep)
     return ModelApi(
         cfg=cfg,
         device=dev,
-        init=functools.partial(init, cfg, dev),
+        init=init,
         forward=functools.partial(model.forward, cfg=cfg),
         loss_fn=functools.partial(model.loss_fn, cfg=cfg),
         init_cache=functools.partial(init_cache, cfg, device=dev),

@@ -12,9 +12,16 @@ with ``remat`` each group is a non-reentrant ``torch.utils.checkpoint``
 "mamba" blocks are the Mamba2 mixer of :mod:`.mamba2` (no MLP).  A
 "shared_attn" block (zamba2) applies the ONE parameter set ``params["shared"]``
 at every occurrence, each occurrence with its own KV cache.  "moe" and
-"swa_moe" blocks replace the dense MLP with :func:`.moe.moe_mlp_local` and
-add its router aux loss to the model's, which ``forward(return_aux=True)``
-returns and ``loss_fn`` weighs in.  The encoder-decoder family is
+"swa_moe" blocks replace the dense MLP with the MoE layer
+(``distributed.moe_parallel.moe_maybe_parallel``: :func:`.moe.moe_mlp_local`,
+or its expert-parallel body under a mesh) and add its router aux loss to
+the model's, which ``forward(return_aux=True)`` returns and ``loss_fn``
+weighs in.
+
+Under a ``DistContext`` with ``DTensor`` params and batch (see
+:mod:`repro_torch.distributed`) the residual stream is constrained where the
+JAX package constrains it (``"residual"`` after the embedding and after each
+stacked group, ``"logits"`` on the logits).  The encoder-decoder family is
 :mod:`.whisper`.
 
 The KV cache is kept in the compute dtype or, with ``cfg.kv_cache_dtype ==
@@ -29,10 +36,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.context import bind, constrain
 from .attention import attention_block, init_attention, ring_positions
 from .layers import (
     chunked_cross_entropy,
     dt,
+    generator,
     embed,
     init_embedding,
     init_mlp,
@@ -43,7 +52,7 @@ from .layers import (
     unembed,
 )
 from .mamba2 import init_mamba_block, init_mamba_cache, mamba_block, mamba_decode_step
-from .moe import init_moe, moe_mlp_local
+from .moe import init_moe
 
 PORTED_KINDS = ("attn", "global", "swa", "moe", "swa_moe", "mamba", "shared_attn")
 MOE_KINDS = ("moe", "swa_moe")
@@ -76,9 +85,10 @@ def _group_slice(tree: Dict, i: int) -> Dict:
 
 # ------------------------------------------------------------------- init
 def init_block(
-    gen: torch.Generator, kind: str, cfg: ModelConfig, lead: Tuple[int, ...] = ()
+    gen: torch.Generator, kind: str, cfg: ModelConfig, lead: Tuple[int, ...] = (), ep: int = 1
 ) -> Dict:
-    """One block's params; ``lead`` stacks them (``(n_groups,)``)."""
+    """One block's params; ``lead`` stacks them (``(n_groups,)``); MoE
+    experts are padded to a multiple of ``ep``."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     pdt = dt(cfg.param_dtype)
@@ -93,17 +103,18 @@ def init_block(
         "ln2": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
     }
     if kind in MOE_KINDS:
-        block["moe"] = init_moe(gen, cfg, lead)
+        block["moe"] = init_moe(gen, cfg, lead, ep)
     else:
         block["mlp"] = init_mlp(gen, cfg, lead)
     return block
 
 
-def init_lm(cfg: ModelConfig, device, seed: int = 0) -> Dict:
-    """Random params drawn from a generator seeded with ``seed`` on ``device``."""
+def init_lm(cfg: ModelConfig, device, seed: int = 0, ep: int = 1) -> Dict:
+    """Random params drawn from a generator seeded with ``seed`` on ``device``
+    (the experts padded for expert-parallel width ``ep``, as the JAX
+    ``init_lm(rng, cfg, ep)``)."""
     check_supported(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = generator(device, seed)
     pat = cfg.pattern
     g = cfg.n_layers // len(pat)
     tail_kinds = cfg.layer_kinds()[g * len(pat) :]
@@ -115,15 +126,15 @@ def init_lm(cfg: ModelConfig, device, seed: int = 0) -> Dict:
         # a shared_attn position has no per-group weights: it lives in
         # params["shared"], as in the JAX tree
         params["groups"] = {
-            f"pos{i}": init_block(gen, kind, cfg, lead=(g,))
+            f"pos{i}": init_block(gen, kind, cfg, lead=(g,), ep=ep)
             for i, kind in enumerate(pat)
             if kind != "shared_attn"
         }
     if "shared_attn" in pat:
-        params["shared"] = init_block(gen, "shared_attn", cfg)
+        params["shared"] = init_block(gen, "shared_attn", cfg, ep=ep)
     if tail_kinds:
         params["tail"] = {
-            f"pos{i}": init_block(gen, kind, cfg) for i, kind in enumerate(tail_kinds)
+            f"pos{i}": init_block(gen, kind, cfg, ep=ep) for i, kind in enumerate(tail_kinds)
         }
     return params
 
@@ -186,7 +197,9 @@ def apply_block(
     x = x + attn_out
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
     if kind in MOE_KINDS:
-        ff, aux = moe_mlp_local(bp["moe"], h, cfg)
+        from ..distributed.moe_parallel import moe_maybe_parallel
+
+        ff, aux = moe_maybe_parallel(bp["moe"], h, cfg)
         return x + ff, aux
     return x + mlp(h, bp["mlp"], cfg), 0.0
 
@@ -232,8 +245,11 @@ def _apply_stack(
     for i in range(g):
         gp = _group_slice(params["groups"], i)
         if remat:
+            # bind: the backward pass recomputes the group on the autograd
+            # engine's thread, which does not see this one's context
             x, a = checkpoint(
-                _apply_pattern, x, gp, pat, positions, cfg, tables, shared, use_reentrant=False
+                bind(_apply_pattern), x, gp, pat, positions, cfg, tables, shared,
+                use_reentrant=False,
             )
         else:
             x, a = _apply_pattern(
@@ -247,6 +263,7 @@ def _apply_stack(
                 _group_slice(cache["groups"], i) if cache is not None else None,
                 cache_index,
             )
+        x = constrain(x, "residual")
         aux = aux + a
     tail_kinds = cfg.layer_kinds()[g * len(pat) :]
     if tail_kinds:
@@ -287,13 +304,14 @@ def forward(
     x = embed(tokens, params["embed"], cfg)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, "residual")
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     x, aux = _apply_stack(params, x, positions, cfg, remat=remat)
     if last_only:
         x = x[:, -1:, :].contiguous()
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out = x if return_hidden else unembed(x, params["embed"], cfg)
+    out = x if return_hidden else constrain(unembed(x, params["embed"], cfg), "logits")
     if not return_aux:
         return out
     if not isinstance(aux, torch.Tensor):

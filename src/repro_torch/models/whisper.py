@@ -30,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.context import constrain, is_dtensor
 from .attention import (
     attention_block,
     cross_attention_block,
@@ -40,6 +41,7 @@ from .attention import (
 from .layers import (
     chunked_cross_entropy,
     dt,
+    generator,
     embed,
     init_embedding,
     init_mlp,
@@ -62,8 +64,7 @@ def _enc(cfg: ModelConfig):
 def init_encdec(cfg: ModelConfig, device, seed: int = 0) -> Dict:
     """Random params drawn from a generator seeded with ``seed`` on ``device``."""
     e = _enc(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = generator(device, seed)
     pdt = dt(cfg.param_dtype)
     d = cfg.d_model
 
@@ -88,6 +89,12 @@ def _arange_positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
 
 
+def _unsharded(params: Dict) -> None:
+    if is_dtensor(params["enc_norm"]["scale"]):
+        raise NotImplementedError("sharded execution of the encoder-decoder family is not "
+                                  "ported yet")
+
+
 # ---------------------------------------------------------------- encoder
 def _enc_layer(x, lp, positions, rope, cfg):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -100,7 +107,8 @@ def _enc_layer(x, lp, positions, rope, cfg):
 def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
     """frames [B, F, d_model] (the stub frontend's output) -> the encoder's
     final-norm states [B, F, d_model]."""
-    x = frames.to(dt(cfg.compute_dtype))
+    _unsharded(params)
+    x = constrain(frames.to(dt(cfg.compute_dtype)), "batch")
     positions = _arange_positions(x)
     rope = rope_frequencies(cfg.head_dim_, positions, cfg.rope_theta)
     for i in range(_enc(cfg).n_enc_layers):
@@ -121,7 +129,7 @@ def _dec_layer(x, lp, enc_out, positions, rope, cfg):
     kv = precompute_cross_kv(lp["cross_attn"], enc_out, cfg)
     x = x + cross_attention_block(lp["cross_attn"], h, kv, cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(h, lp["mlp"], cfg)
+    return constrain(x + mlp(h, lp["mlp"], cfg), "residual")
 
 
 def forward(
@@ -139,7 +147,7 @@ def forward(
     with ``last_only``), and with ``return_aux`` (that, an fp32 zero), as
     the JAX function always returns."""
     enc_out = encode(params, frames, cfg, remat=remat)
-    x = embed(tokens, params["embed"], cfg)
+    x = constrain(embed(tokens, params["embed"], cfg), "residual")
     positions = _arange_positions(x)
     rope = rope_frequencies(cfg.head_dim_, positions, cfg.rope_theta)
     for i in range(cfg.n_layers):
@@ -151,7 +159,7 @@ def forward(
     if last_only:
         x = x[:, -1:, :].contiguous()
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out = x if return_hidden else unembed(x, params["embed"], cfg)
+    out = x if return_hidden else constrain(unembed(x, params["embed"], cfg), "logits")
     if not return_aux:
         return out
     return out, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,6 +1,6 @@
-"""Optimizer and schedules: the counterpart of ``repro.optim`` (the
-int8 gradient compression of ``repro.optim.compression`` comes with the
-distributed slice)."""
+"""Optimizer, schedules and gradient compression: the counterpart of
+``repro.optim`` (the int8 compressed all-reduce is
+:mod:`.compression`)."""
 
 from .adamw import (
     AdamWConfig,

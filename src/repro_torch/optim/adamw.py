@@ -69,26 +69,36 @@ def adamw_update(
     cfg: AdamWConfig = AdamWConfig(),
 ) -> Tuple[Any, Dict]:
     """One AdamW step, in place on ``state`` and ``params``; returns them."""
-    state["step"].add_(1)
-    step = state["step"].float()
-    bc1 = 1.0 - cfg.b1**step
-    bc2 = 1.0 - cfg.b2**step
+    bc1, bc2 = bias_corrections(state, cfg)
     masters = state.get("master", params)
     for path, g in flatten_tree(grads):
-        m, v = tree_get(state["m"], path), tree_get(state["v"], path)
         master, p = tree_get(masters, path), tree_get(params, path)
-        g = g.float()
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-        upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        upd.add_(master.float(), alpha=cfg.weight_decay).mul_(lr)
-        if master.dtype == torch.float32:
-            master.sub_(upd)
-        else:  # no fp32 master: the param itself, updated in fp32
-            master.copy_(master.float() - upd)
+        adamw_leaf(g, tree_get(state["m"], path), tree_get(state["v"], path), master, lr, bc1,
+                   bc2, cfg)
         if p is not master:
             p.copy_(master)
     return params, state
+
+
+def bias_corrections(state: Dict, cfg: AdamWConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counts the step in ``state`` and returns its (1 - b1^t, 1 - b2^t)."""
+    state["step"].add_(1)
+    step = state["step"].float()
+    return 1.0 - cfg.b1**step, 1.0 - cfg.b2**step
+
+
+def adamw_leaf(g, m, v, master, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    """One leaf's AdamW update: ``m``, ``v`` and ``master`` (the fp32
+    master, or the param itself without one) in place."""
+    g = g.float()
+    m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+    upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+    upd.add_(master.float(), alpha=cfg.weight_decay).mul_(lr)
+    if master.dtype == torch.float32:
+        master.sub_(upd)
+    else:  # no fp32 master: the param itself, updated in fp32
+        master.copy_(master.float() - upd)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

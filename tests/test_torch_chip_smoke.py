@@ -131,6 +131,9 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         SSM_MODELS=("tiny-mamba", "tiny-zamba"), SSM_PROMPT_LEN=25,
         SSM_NEW_TOKENS=8, SSM_MAX_LEN=32, SSM_BATCH=2, SSM_CHECK_POSITIONS=(0, 15, 16, 31),
         PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,
+        # phase 6 serves them cut by one layer (tiny-zamba: one group and a
+        # tail of one), the prefill at full depth
+        SSM_SERVE_LAYERS={"tiny-mamba": 2, "tiny-zamba": 7},
         PILOT_TRAIN_LAYERS=None, PILOT_SERVE_PROMPT_LEN=6, PILOT_SERVE_NEW_TOKENS=3,
         PILOT_SERVE_MAX_LEN=16, PILOT_TIMEOUT_S=120.0,
         MOE_MODEL="tiny-moe", MOE_PROMPT_LEN=10, MOE_NEW_TOKENS=4, MOE_MAX_LEN=16, MOE_BATCH=2,
@@ -146,6 +149,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         # remat and plain-version checks at 1 layer
         DENSE_TRAIN_MODEL="tiny-granite", DENSE_TRAIN_LAYERS=2, DENSE_REMAT_LAYERS=1,
         DENSE_PLAIN_SEQ=16,
+        # phase 14: tiny-moe uncut through the sharded step over gloo (one rank)
+        DIST_MODEL="tiny-moe", DIST_LAYERS=2, DIST_STEPS=3,
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -206,10 +211,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert kernels["flash_attention_bwd"]["launches"] == 4 * 3
     assert kernels["rmsnorm_bwd"]["launches"] == 4 * 7
     assert kernels["rmsnorm"]["launches_by_path"]["train"] == 2 * 7 + 4 * 13
-    # ssm: tiny-mamba's bf16 and fp32 forwards, its layer-0 state check and
-    # two prefills (3 mamba layers each), tiny-zamba's two forwards (7) and
-    # state check; the decode runs no B4
-    assert kernels["ssd_scan"]["launches"] == (3 + 3 + 1 + 2 * 3) + (7 + 7 + 1)
+    # ssm: tiny-mamba's bf16 and fp32 forwards at 2 layers, its layer-0 state
+    # check and two prefills at full depth (3 mamba layers each), tiny-zamba's
+    # two forwards at 7 layers (6 mamba) and state check; the decode runs no B4
+    assert kernels["ssd_scan"]["launches"] == (2 + 2 + 1 + 2 * 3) + (6 + 6 + 1)
     assert kernels["ssd_scan"]["launches_by_path"]["serve"] == 0
     ssm = kernels["decode_attention"]["launches_by_path"]["ssm"]
     assert ssm == 1 * 2 * (25 + 8 - 1)  # tiny-zamba's shared attention, bf16 and fp32 decode
@@ -278,6 +283,13 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert dense_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
                            "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
                            "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    # dist-train: tiny-moe (2 layers) through the sharded step, 3 remat steps
+    # (2 + 2 attention forwards, 2 backwards; 5 + 4 norm forwards, 5
+    # backwards), equal to the unsharded step's
+    dist_train = {name: k["launches_by_path"]["dist-train"] for name, k in kernels.items()}
+    assert dist_train == {"flash_attention": 3 * 4, "flash_attention_bwd": 3 * 2,
+                          "rmsnorm": 3 * 9, "rmsnorm_bwd": 3 * 5, "decode_attention": 0,
+                          "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     # h2o-danube's phase 12 case runs the forward only; granite-34b's G 48
     # runs both ways at its serve and its training shape
     fwd = [c["case"] for c in kernels["flash_attention"]["cases"]]

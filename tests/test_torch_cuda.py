@@ -1213,3 +1213,140 @@ def test_architectures_on_card_match_the_plain_path(cuda, monkeypatch, case):
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), what
     for (path, _), x, y in zip(flatten_tree(cpu_params), got_g, want_g):
         assert (x - y).abs().max().item() <= 1e-3 * y.abs().max().item(), path
+
+
+# ---------------------------------------------------------------- distributed
+@pytest.fixture(scope="module")
+def card_mesh():
+    """A (data 1, model 1) mesh over a one-rank NCCL group on a free
+    localhost port (NCCL takes no second rank on the same card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _card_cfg(name: str, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    kw = dict(dict(head_dim=64, param_dtype="bfloat16", compute_dtype="bfloat16"), **kw)
+    return dataclasses.replace(get_config(name), **kw)
+
+
+def test_expert_parallel_layer_on_card_equals_local(cuda, card_mesh):
+    """The EP path at world 1 over NCCL (an all_to_all_single out and one
+    back) gives moe_mlp_local's y and aux bit for bit."""
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.distributed import DistContext, distribute_tree, distribution
+    from repro_torch.distributed.moe_parallel import moe_maybe_parallel
+    from repro_torch.models import build_model, moe
+
+    cfg = _card_cfg("granite-moe-3b-a800m-smoke")
+    params = build_model(cfg, device=cuda).init(seed=0)
+    layer = {"router": {"w": params["groups"]["pos0"]["moe"]["router"]["w"][0]},
+             **{k: params["groups"]["pos0"]["moe"][k][0] for k in ("gate", "up", "down")}}
+    x = torch.randn(2, 64, cfg.d_model, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(1)).to(torch.bfloat16)
+    y_ref, aux_ref = moe.moe_mlp_local(layer, x, cfg)
+    ctx = DistContext(card_mesh, ("data",))
+    specs = {"router": {"w": (None, None)}, "gate": ("model", None, None),
+             "up": ("model", None, None), "down": ("model", None, None)}
+    dlayer = distribute_tree(layer, specs, ctx)
+    dx = distribute_tree({"x": x}, {"x": ("data", "model", None)}, ctx)["x"]
+    before = moe.moe_mlp_ep.exchanges
+    with distribution(ctx):
+        y, aux = moe_maybe_parallel(dlayer, dx, cfg)
+    torch.cuda.synchronize()
+    assert moe.moe_mlp_ep.exchanges == before + 2
+    assert torch.equal(y.full_tensor(), y_ref) and torch.equal(aux.full_tensor(), aux_ref)
+    assert len(flatten_tree(dlayer)) == 4
+
+
+def test_sharded_train_step_on_card_runs_no_plain_version(cuda, card_mesh, monkeypatch):
+    """One step of the sharded train step (granite-moe smoke, head dim 64,
+    bf16) on the card with every plain version made to raise: the launches
+    are the unsharded step's, and so are the loss, the grad norm and every
+    updated leaf, bit for bit."""
+    from repro_torch.checkpoint import flatten_tree, tree_map
+    from repro_torch.distributed import DistContext, distribute_tree, opt_specs, param_specs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.optim.adamw import tree_get
+    from repro_torch.training import make_train_step
+
+    cfg = _card_cfg("granite-moe-3b-a800m-smoke", n_layers=3)
+    api = build_model(cfg, device=cuda)
+    params = api.init(seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 80), device=cuda)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    _refuse_plain_versions(monkeypatch)
+    counters = ((fa_ops.flash_attention, "launches"), (fa_ops.flash_attention, "backward_launches"),
+                (norm_ops.rmsnorm, "launches"), (norm_ops.rmsnorm, "backward_launches"))
+
+    def run(step, p, o):
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        p, o, m = step(p, o, batch)
+        torch.cuda.synchronize()
+        return p, o, {k: v.item() for k, v in m.items()}, [getattr(f, a) for f, a in counters]
+
+    ref_p = tree_map(lambda t: t.clone(), params)
+    ref_p, ref_o, ref_m, ref_n = run(make_train_step(api, warmup_steps=1), ref_p,
+                                     init_adamw(ref_p))
+    ctx = DistContext(card_mesh, ("data",))
+    opt = init_adamw(params)
+    ps = param_specs(params, cfg, ctx)
+    opt = distribute_tree(opt, opt_specs(opt, ps, cfg, ctx), ctx)
+    params = distribute_tree(params, ps, ctx)
+    params, opt, m, n = run(make_train_step(api, warmup_steps=1, ctx=ctx), params, opt)
+    assert n == ref_n and n[0] == 2 * cfg.n_layers and n[1] == cfg.n_layers
+    assert m == ref_m and all(torch.isfinite(torch.tensor(v)) for v in m.values())
+    for tree, ref in ((params, ref_p), (opt, ref_o)):
+        for path, t in flatten_tree(tree):
+            assert torch.equal(t.full_tensor(), tree_get(ref, path)), path
+
+
+def test_group_12_attention_in_local_map_raises_before_any_launch(cuda, card_mesh):
+    """granite-34b at model 4 gives each rank 12 q heads on the one kv
+    head: the flash kernel has no G 12 instance and raises inside the local
+    region before it launches, as it does for G 6; nothing falls back to
+    the plain version.  One card holds one rank, so the local group is
+    built by the heads (12/1) at world 1."""
+    from repro_torch.distributed import DistContext, distribute_tree, distribution, param_specs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.layers import rope_frequencies
+
+    cfg = _card_cfg("granite-34b-smoke", n_heads=12, n_kv_heads=1, head_dim=128)
+    ctx = DistContext(card_mesh, ("data",))
+    params = build_model(cfg, device=cuda).init(seed=0)
+    attn = {k: {"w": v["w"][0]} for k, v in params["groups"]["pos0"]["attn"].items()}
+    specs = param_specs({"groups": {"pos0": {"attn": params["groups"]["pos0"]["attn"]}}}, cfg, ctx)
+    specs = {k: {"w": v["w"][1:]} for k, v in specs["groups"]["pos0"]["attn"].items()}
+    dattn = distribute_tree(attn, specs, ctx)
+    x = torch.randn(2, 64, cfg.d_model, device=cuda).to(torch.bfloat16)
+    dx = distribute_tree({"x": x}, {"x": ("data", None, None)}, ctx)["x"]
+    pos = torch.arange(64, device=cuda, dtype=torch.int32)[None].expand(2, 64)
+    before = (fa_ops.flash_attention.launches, fa_ops.flash_attention.backward_launches)
+    with distribution(ctx), pytest.raises(NotImplementedError, match="group=12"):
+        attention_block(dattn, dx, pos, cfg, causal=True,
+                        rope=rope_frequencies(cfg.head_dim_, pos, cfg.rope_theta))
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.backward_launches) == before

@@ -61,16 +61,21 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             raise
     names.append(m.name)
 assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "repro") and sys.modules[k]]
-print(len(names))
+print(" ".join(names))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
+    names = set(res.stdout.split())
     # every module of the port, the runtime copy (core, backends, data,
-    # analysis) included
-    assert int(res.stdout.strip()) >= 78
+    # analysis) and the distributed layer included
+    assert len(names) >= 89
+    assert {"repro_torch.distributed.context", "repro_torch.distributed.sharding_rules",
+            "repro_torch.distributed.pipeline", "repro_torch.distributed.moe_parallel",
+            "repro_torch.distributed.tensor_parallel", "repro_torch.optim.compression",
+            "repro_torch.launch.mesh"} <= names
 
 
 def _no_cuda(monkeypatch):
