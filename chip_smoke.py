@@ -41,7 +41,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 attention and every norm, forward, recompute and backward, went
                 through the kernels; the loss must fall;
   6. ssm     -- mamba2-370m and zamba2-1.2b at full width, cut of depth only
-                to SSM_SERVE_LAYERS (24 of 48, 20 of 38) for time (random
+                to SSM_SERVE_LAYERS (16 of 48, 14 of 38) for time (random
                 weights from --seed), served from checkpoint DU files by
                 DecodeEngine: 4 prompts of 489 tokens plus 24 new tokens
                 (512 fed tokens, two SSD chunks of 256).  Decode logits are
@@ -136,7 +136,20 @@ Phases, each of which must pass (any failure exits non-zero):
                 over NCCL on the loss's gradient tree, twice (the second
                 with the first's residual), held to its plain version
                 (quantise, dequantise, the residual) bit for bit;
- 15. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
+ 15. dryrun  -- the launch layer (``repro_torch.launch``) against the card:
+                the trained cells of phases 5, 9, 11 and 13 at their shapes,
+                unsharded, on meta tensors under the op analyser: their kernel
+                launches must be exactly ``train_launch_schedule``'s and their
+                predicted step peaks within DRYRUN_PEAK_TOL of the peaks their
+                phases measured; the roofline's step time is logged beside the
+                measured s/step; phase 5's step, run once more on the card
+                under the analyser, must count the FLOPs, bytes and launches
+                of its meta run exactly; and DRYRUN_CELL (granite-moe-3b-a800m
+                x train_4k) runs as ``python -m repro_torch.launch.dryrun`` on
+                the fake 256-rank production mesh in a process that sees no
+                card, and must be OK, its peak under 80 GB, within
+                DRYRUN_TIMEOUT_S;
+ 16. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
 served model; granite-moe's with its MoE layers' share), of one train step
@@ -167,10 +180,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+try:  # the H100 SXM's data-sheet figures have one home, the port's roofline
+    from repro_torch.launch.roofline import BF16_FLOPS, FP32_FLOPS, TF32_FLOPS
+    from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
+except ImportError:  # no checkout beside this script: main() refuses to start
+    BF16_FLOPS = FP32_FLOPS = TF32_FLOPS = HBM_BYTES_PER_S = None
 BF16_ULP = 2.0**-7  # one bf16 ulp relative to the value (8 significant bits)
 
 DEVICE = "cuda"
@@ -187,10 +201,11 @@ TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
 SSM_MODELS = ("mamba2-370m", "zamba2-1.2b")
 # phase 6 serves each model cut of depth only to these layers for time: its
 # decode loops are host-bound (74 / 63 ms a step at full depth on a slow
-# host, 139 s for the phase), and the script must stay under 600 s; the
-# cut keeps every width, the chunk boundary, and zamba2's shared attention
-# block (3 occurrences) and tail; the prefill runs at full depth
-SSM_SERVE_LAYERS = {"mamba2-370m": 24, "zamba2-1.2b": 20}
+# host, 139 s for the phase), and the script must stay under 600 s (a
+# third of the depth since phase 15 came); the cut keeps every width, the
+# chunk boundary, and zamba2's shared attention block (2 occurrences) and
+# tail; the prefill runs at full depth
+SSM_SERVE_LAYERS = {"mamba2-370m": 16, "zamba2-1.2b": 14}
 SSM_PROMPT_LEN, SSM_NEW_TOKENS, SSM_MAX_LEN, SSM_BATCH = 489, 24, 512, 4
 SSM_CHECK_POSITIONS = (0, 255, 256, 511)  # position 0 first; either side of the chunk boundary
 STATE_TOL = 2e-2  # max |engine state - forward state| over max(1, max |forward state|)
@@ -397,6 +412,13 @@ SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 4096
 DIST_MODEL = "granite-moe-3b-a800m"
 DIST_LAYERS = 8
 DIST_STEPS = 3
+
+# phase 15: the production cell run in a subprocess on the fake 256-rank
+# mesh, without a card, within DRYRUN_TIMEOUT_S; each predicted train-step
+# peak within DRYRUN_PEAK_TOL of the one its phase measured
+DRYRUN_CELL = ("granite-moe-3b-a800m", "train_4k")
+DRYRUN_TIMEOUT_S = 60.0
+DRYRUN_PEAK_TOL = 0.10
 
 SSM_REMAT_LAYERS = 4
 SSM_PLAIN_GRAD_TOL = 1e-3  # fp32 kernels against fp32 plain versions, of a leaf's max |g|
@@ -709,20 +731,17 @@ def decode_cases(torch, timer, gen):
             plain = timer(lambda: decode_attention_ref(q[:, 0], k, v, pos_q, pos_k, window=window))
             lib = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
-            n_bytes = (2 * n_valid * hkv * d * 2  # K and V rows that the mask keeps
-                       + 2 * b * hq * d * 2  # q in, out
-                       + sk * 4 + b * 4)  # slot positions (one row, broadcast), pos
-            flops = 4 * n_valid * hq * d
-            bound, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+            cost = ops.cost(b, sk, hq, hkv, d, n_valid)  # the rows that the mask keeps
+            bound, by = bound_ms(cost.bytes, cost.ops, cost.peak)
             # the kernel multiplies on the CUDA cores in fp32: its own ceiling
-            fp32_ms = flops / FP32_FLOPS * 1e3
+            fp32_ms = cost.flops / FP32_FLOPS * 1e3
             cases.append(dict(case=label, B=b, Sk=sk, Hq=hq, Hkv=hkv, D=d, window=window,
                               pos=pos, dtype="bfloat16", plan=plan, device_kernels=names,
                               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                               bound_by=by, max_abs_err=err))
             log(f"kernels: {name} bf16 window={window} pos={pos}: "
                 f"{ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound {bound:.4f} by {by}; "
-                f"bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f}, ops at the fp32 CUDA-core "
+                f"bytes {cost.bytes / HBM_BYTES_PER_S * 1e3:.4f}, ops at the fp32 CUDA-core "
                 f"rate {fp32_ms:.4f}), max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
     return cases
 
@@ -730,7 +749,7 @@ def decode_cases(torch, timer, gen):
 def rmsnorm_cases(torch, timer, gen, residual: bool):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ops import cost, rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref, rmsnorm_residual_ref
 
     eps = 1e-6
@@ -760,31 +779,18 @@ def rmsnorm_cases(torch, timer, gen, residual: bool):
                 ms = timer(lambda: rmsnorm(x, w, eps, residual=r))
                 plain = timer(lambda: rmsnorm_residual_ref(x, r, w, eps))
                 lib = None  # no single PyTorch call adds the residual and normalizes
-                n_bytes = 4 * rows * d * 2 + d * 2  # x, r in; normed, sum out; w
             else:
                 ms = timer(lambda: rmsnorm(x, w, eps))
                 plain = timer(lambda: rmsnorm_ref(x, w, eps))
                 w1 = (1.0 + w.float()).to(dtype)  # F.rms_norm scales by w, not 1 + w
                 lib = timer(lambda: F.rms_norm(x, (d,), w1, eps))
-                n_bytes = 2 * rows * d * 2 + d * 2  # x in, out; w
-            bound, by = bound_ms(n_bytes, 5 * rows * d, FP32_FLOPS)
+            c = cost(rows, d, residual=residual)
+            bound, by = bound_ms(c.bytes, c.ops, c.peak)
             cases.append(dict(rows=rows, D=d, dtype="bfloat16", ms=ms, plain_ms=plain,
                               library_ms=lib, bound_ms=bound, bound_by=by, max_abs_err=err))
             log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, F.rms_norm {lib}, "
                 f"bound {bound:.4f} by {by}), max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
     return cases
-
-
-def kept_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs that the mask keeps in one (batch, head) of an
-    attention of sq queries at positions 0.. over sk keys at 0..: the work a
-    kernel that skips the rest does."""
-    import numpy as np
-
-    q = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, dtype=np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def flash_cases(torch, timer, gen):
@@ -852,9 +858,7 @@ def flash_cases(torch, timer, gen):
             del grads_p
         del f32, ref, ref_lse, ref_grads, grads
         log(f"kernels: {name}: gate row/mean ratios (pass <= 1) {', '.join(ratios)}")
-        pairs = b * hq * kept_pairs(sq, sk, causal, window)
-        io = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * 2  # q, k, v in; out
-        lse_bytes = b * hq * sq * 4
+        pairs = b * hq * ops.kept_pairs(sq, sk, causal, window)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         iq, ik = torch.arange(sq, device=DEVICE), torch.arange(sk, device=DEVICE)
         mask = (ik[None] <= iq[:, None]) if causal else torch.ones(
@@ -866,7 +870,8 @@ def flash_cases(torch, timer, gen):
             plain = timer(lambda: flash_attention_ref(q, k, v, causal=causal, window=window))
             lib = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
-        bound, by = bound_ms(io + lse_bytes, 4 * pairs * d, BF16_FLOPS)
+        c = ops.cost(b, sq, sk, hq, hkv, d, causal, window)
+        bound, by = bound_ms(c.bytes, c.ops, c.peak)
         fwd_cases.append(dict(case=label, B=b, S=sq, Sk=sk, Hq=hq, Hkv=hkv, D=d, causal=causal,
                               window=window, dtype="bfloat16", pairs=pairs, ms=ms,
                               plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
@@ -890,8 +895,8 @@ def flash_cases(torch, timer, gen):
         dout_t = dout.transpose(1, 2)
         blib = timer(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout_t, retain_graph=True))
         del lib_out, qg, kg, vg
-        # q, k, v, out, dout, lse in; dq, dk, dv out
-        bbound, bby = bound_ms(2 * io + lse_bytes, 10 * pairs * d, BF16_FLOPS)
+        c = ops.cost(b, sq, sk, hq, hkv, d, causal, window, backward=True)
+        bbound, bby = bound_ms(c.bytes, c.ops, c.peak)
         bwd_cases.append(dict(case=label, B=b, S=sq, Sk=sk, Hq=hq, Hkv=hkv, D=d, causal=causal,
                               window=window, dtype="bfloat16", pairs=pairs, ms=bms,
                               plain_ms=bplain, library_ms=blib, bound_ms=bbound, bound_by=bby,
@@ -909,7 +914,7 @@ def flash_cases(torch, timer, gen):
 def rmsnorm_bwd_cases(torch, timer, gen):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
+    from repro_torch.kernels.rmsnorm.ops import cost, rmsnorm_bwd
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 
     eps = 1e-6
@@ -939,8 +944,8 @@ def rmsnorm_bwd_cases(torch, timer, gen):
             y = F.rms_norm(xg, (d,), w1, eps)
             lib = timer(lambda: torch.autograd.grad(y, (xg, w1), dy, retain_graph=True))
             del y
-            n_bytes = 3 * rows * d * 2 + 2 * d * 2  # x, dy in, dx out; w in, dscale out
-            bound, by = bound_ms(n_bytes, 10 * rows * d, FP32_FLOPS)
+            c = cost(rows, d, backward=True)
+            bound, by = bound_ms(c.bytes, c.ops, c.peak)
             cases.append(dict(rows=rows, D=d, dtype="bfloat16", ms=ms, plain_ms=plain,
                               library_ms=lib, bound_ms=bound, bound_by=by, max_abs_err=err))
             log(f"kernels: {name}: {ms:.4f} ms (plain {plain:.4f}, F.rms_norm backward "
@@ -1017,24 +1022,16 @@ def ssd_cases(torch, timer, gen):
         plain = timer(lambda: ssd_ref(x, dA, B_, C_, q, state))
         passes_ms = {pn: timer(lambda pn=pn: ops.run_pass(ws, pn)) for pn in ops.PASSES}
         del ws
-        # the work the function needs: C B^T once per (b, chunk, group) and
-        # (L o S) X per (b, h, chunk), both on the lower triangle only (Q(Q+1)/2
-        # pairs); per (b, h, chunk) the state term C state^T (none in the first
-        # chunk without an initial state) and the state update, 2QPN each
-        chunks, tri = s // q, q * (q + 1) // 2
-        flops = (b * chunks * g * 2 * n * tri + b * h * chunks * 2 * p * tri
-                 + b * h * (2 * chunks - (0 if init else 1)) * 2 * q * p * n)
+        # the work the function needs (``ops.cost``: the lower triangles, the
+        # state terms), in 3xTF32, three TF32 products for each fp32 one: its
+        # bound is that work at the TF32 peak; the same work on the fp32 CUDA
+        # cores is logged beside it
+        c = ops.cost(b, s, h, p, n, g, q, init, x.element_size())
+        flops, n_bytes = c.flops, c.bytes
         # the TPU kernel's work, for comparison: full Q x Q squares, C B^T per head
+        chunks = s // q
         tpu_flops = b * h * chunks * (2 * q * q * n + 2 * q * q * p + 4 * q * p * n)
-        item = x.element_size()
-        n_bytes = (2 * b * s * h * p * item  # x in, y out
-                   + b * s * h * 4  # dA
-                   + 2 * b * s * g * n * item  # B, C in their group layout
-                   + b * h * p * n * 4 * (2 if init else 1))  # final (and initial) state
-        # the kernel's products run in 3xTF32, three TF32 products for each
-        # fp32 one: its bound is that work at the TF32 peak; the same work
-        # on the fp32 CUDA cores is logged beside it
-        bound, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
+        bound, by = bound_ms(c.bytes, c.ops, c.peak)
         fp32_bound = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
         cases.append(dict(case=label, B=b, S=s, H=h, P=p, N=n, G=g, dtype=dtype_name,
                           flops=flops, tpu_flops=tpu_flops, bytes=n_bytes, ms=ms, plain_ms=plain,
@@ -1131,26 +1128,15 @@ def ssd_bwd_cases(torch, timer, gen):
         plain = timer(lambda: ssd_bwd_scratch_ref(x, B_, C_, ws.cum, ws.cb, ws.prev, dy, dfinal))
         passes_ms = {pn: timer(lambda pn=pn: ops.run_pass(bw, pn)) for pn in ops.BWD_PASSES}
         del ws, bw
-        # the work the function needs on these inputs, per (b, h, chunk): four
-        # products on the lower triangle (Q(Q+1)/2 pairs): dy x^T and S^T dy
-        # over P, dM^T C and dM B over N; and four Q x P x N state products:
-        # (dy o e)^T C and (dy o e) prev, none in the first chunk without an
-        # initial state (prev is 0 and d_initial unused), B g^T and x g, none
-        # in the last chunk without dfinal (g is 0)
+        # the work the function needs on these inputs (``ops.bwd_cost``: the
+        # lower-triangle products, the state products that the initial state
+        # and dfinal need), in 3xTF32 as the forward's: its bound is that work
+        # at the TF32 peak; the same work on the fp32 CUDA cores is logged
+        # beside it
+        c = ops.bwd_cost(b, s, h, p, n, g, q, init, dfin)
+        flops, n_bytes = c.flops, c.bytes
         chunks, tri = s // q, q * (q + 1) // 2
-        flops = (b * h * chunks * 2 * tri * (2 * p + 2 * n)
-                 + b * h * 2 * q * p * n * 2 * ((chunks - (0 if init else 1))
-                                                + (chunks - (0 if dfin else 1))))
-        n_bytes = 4 * (3 * b * s * h * p  # x, dy in, dx out
-                       + 2 * b * s * h  # cum in, d_dA out
-                       + 4 * b * s * g * n  # B, C in, dB, dC out
-                       + b * chunks * g * q * q  # C B^T in
-                       + b * chunks * h * p * n  # prev in
-                       + b * h * p * n * ((1 if init else 0) + (1 if dfin else 0)))
-        # the kernel's products run in 3xTF32, as the forward's do: its bound is
-        # that work at the TF32 peak; the same work on the fp32 CUDA cores is
-        # logged beside it
-        bound, by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
+        bound, by = bound_ms(c.bytes, c.ops, c.peak)
         fp32_bound = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
         # the products each tensor pass runs, on the same count: dprev (dy o
         # e)^T C; dx dy x^T, S^T dy, dM^T C, B g^T and x g; dC dy x^T, dM B and
@@ -1402,6 +1388,12 @@ def train_launch_schedule(cfg) -> dict:
                 rmsnorm=fwd["rmsnorm"] + remat["rmsnorm"], rmsnorm_bwd=fwd["rmsnorm"])
 
 
+def train_step_kwargs() -> dict:
+    """``make_train_step``'s arguments on phase 5's schedule."""
+    return dict(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                microbatches=1, remat=True)
+
+
 def token_batch(torch, cfg, seed: int, batch: int, seq: int) -> dict:
     """tokens/labels [batch, seq] on the device, drawn from ``seed``."""
     import numpy as np
@@ -1436,8 +1428,7 @@ def run_train(torch, smi, tag: str, api, params, batch, tokens_per_step: int):
 
     opt = init_adamw(params)
     eval_step = make_eval_step(api)
-    train_step = make_train_step(api, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                                 total_steps=TRAIN_STEPS, microbatches=1, remat=True)
+    train_step = make_train_step(api, **train_step_kwargs())
     per_step, per_eval = train_launch_schedule(api.cfg), path_launches(api.cfg, "forward")
 
     reset_counts()
@@ -3172,6 +3163,142 @@ def phase_dist_train(torch, seed, smi, profile: bool = False):
                           compression=comp)
 
 
+# ------------------------------------------------------------ phase 15
+def dryrun_cells(measured: dict) -> list:
+    """(tag, config, batch, seq, the phase's summary) of each trained cell at
+    the shapes its phase trains it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    dense = dataclasses.replace(get_config(DENSE_TRAIN_MODEL), n_layers=DENSE_TRAIN_LAYERS)
+    return ([("train", get_config(TRAIN_MODEL), TRAIN_BATCH, TRAIN_SEQ, measured["train"]),
+             ("moe-train", get_config(MOE_MODEL), TRAIN_BATCH, TRAIN_SEQ, measured["moe-train"])]
+            + [(f"ssm-train {m}", get_config(m), SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
+                measured["ssm-train"][m]) for m in SSM_MODELS]
+            + [("dense-train", dense, TRAIN_BATCH, TRAIN_SEQ, measured["dense-train"])])
+
+
+def start_production_cell(tmp: Path):
+    """The dry run of DRYRUN_CELL as a user starts it, in a process that sees
+    no card; its records go under ``tmp``."""
+    arch, shape = DRYRUN_CELL
+    path = [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(path))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--out", str(tmp)]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), time.perf_counter()
+
+
+def finish_production_cell(proc, t0: float, tmp: Path) -> dict:
+    """The production cell's record: it must be OK within DRYRUN_TIMEOUT_S,
+    its peak under the card's memory."""
+    from repro_torch.launch import roofline
+
+    arch, shape = DRYRUN_CELL
+    try:
+        out, _ = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dryrun: {arch} x {shape} took more than {DRYRUN_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    paths = list(tmp.glob(f"*/{arch}__{shape}.json"))
+    if proc.returncode != 0 or len(paths) != 1:
+        raise AssertionError(f"dryrun: {arch} x {shape} exited {proc.returncode}:\n{out[-4000:]}")
+    cell = json.loads(paths[0].read_text())
+    terms = roofline.derive_terms(cell)
+    if cell["status"] != "OK" or not cell["memory"]["fits_80GB"]:
+        raise AssertionError(f"dryrun: {arch} x {shape} on {cell['mesh']}: {cell}")
+    log(f"dryrun: {arch} x {shape} on the fake {cell['mesh']} mesh ({cell['n_devices']} ranks), "
+        f"no card visible: OK in {wall:.1f} s; {cell['memory']['peak_per_device'] / 2**30:.2f} "
+        f"GiB a card, modelled step {terms['step_s']:.4f} s ({terms['dominant']}-bound: compute "
+        f"{terms['compute_s']:.4f}, memory {terms['memory_s']:.4f}, collective "
+        f"{terms['collective_s']:.4f} s), useful {terms['useful_ratio']:.3f}")
+    return dict(cell=f"{arch} x {shape}", mesh=cell["mesh"], wall_s=wall,
+                peak_per_device=cell["memory"]["peak_per_device"],
+                kernels={k: v["launches"] for k, v in cell["op_analysis"]["kernels"].items()},
+                terms={k: terms[k] for k in ("compute_s", "memory_s", "collective_s", "step_s",
+                                             "dominant", "useful_ratio")})
+
+
+def phase_dryrun(torch, seed, smi, measured: dict):
+    """The launch layer against the card: the trained cells' steps run
+    unsharded on meta tensors under the op analyser, at their phases'
+    shapes, must launch exactly the kernels ``train_launch_schedule`` says
+    and predict their phases' measured peaks within DRYRUN_PEAK_TOL; phase
+    5's step run once more on the card under the analyser must count what
+    its meta run counts, exactly; and DRYRUN_CELL, run as a user runs it on
+    the fake production mesh in a process that sees no card, must be OK."""
+    import tempfile
+
+    from repro_torch.launch.dryrun import train_step_analysis
+    from repro_torch.models import build_model
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, t_cell = start_production_cell(Path(tmp))
+        try:
+            for tag, cfg, b, seq, summary in dryrun_cells(measured):
+                shapes = {k: ((b, seq), torch.int32) for k in ("tokens", "labels")}
+                t0 = time.perf_counter()
+                meta = train_step_analysis(build_model(cfg, device="meta"), shapes,
+                                           **train_step_kwargs())
+                meta_s = time.perf_counter() - t0
+                want = train_launch_schedule(cfg)
+                got = {k: meta["kernels"].get(k, {}).get("launches", 0) for k in want}
+                if got != want:
+                    raise AssertionError(f"dryrun {tag}: meta launches {got} != {want}")
+                measured_peak = summary["peak_gib"] * 2**30
+                ratio = meta["peak_bytes"] / measured_peak if measured_peak else float("nan")
+                if DEVICE == "cuda" and not abs(ratio - 1) <= DRYRUN_PEAK_TOL:
+                    raise AssertionError(f"dryrun {tag}: predicted peak {meta['peak_bytes']} B is "
+                                         f"{ratio:.4f} x the measured {measured_peak:.0f} B")
+                # the roofline of an unsharded step: its compute or its memory term
+                model_s = max(meta["compute_seconds"], meta["hbm_bytes"] / HBM_BYTES_PER_S)
+                log(f"dryrun {tag}: meta step in {meta_s:.1f} s: launches {got} (the schedule's); "
+                    f"peak {meta['peak_bytes'] / 2**30:.3f} GiB predicted, "
+                    f"{summary['peak_gib']:.3f} GiB measured in its phase on {smi} (ratio "
+                    f"{ratio:.4f}); modelled step {model_s:.4f} s (compute "
+                    f"{meta['compute_seconds']:.4f}, memory {meta['hbm_bytes'] / HBM_BYTES_PER_S:.4f}) "
+                    f"beside {summary['s_per_step']:.4f} s/step measured "
+                    f"({model_s / summary['s_per_step']:.3f} of it)")
+                out[tag] = dict(launches=got, peak_predicted=meta["peak_bytes"],
+                                peak_measured=measured_peak, peak_ratio=ratio,
+                                flops=meta["flops"], hbm_bytes=meta["hbm_bytes"],
+                                compute_s=meta["compute_seconds"], model_step_s=model_s,
+                                measured_step_s=summary["s_per_step"])
+                if tag != "train":
+                    continue
+                # the same step once more on the card, counted by the same analyser
+                api = build_model(cfg, device=DEVICE)
+                params = api.init(seed=seed)
+                card = train_step_analysis(api, shapes, params=params, **train_step_kwargs())
+                del api, params
+                if DEVICE == "cuda":
+                    torch.cuda.empty_cache()
+                pairs = {"flops": (card["flops"], meta["flops"]),
+                         "hbm_bytes": (card["hbm_bytes"], meta["hbm_bytes"]),
+                         "launches": ({k: v["launches"] for k, v in card["kernels"].items()},
+                                      {k: v["launches"] for k, v in meta["kernels"].items()})}
+                same = all(a == m for a, m in pairs.values())
+                if DEVICE == "cuda" and not same:
+                    raise AssertionError(f"dryrun {tag}: the card step counted {pairs} (card, meta)")
+                log(f"dryrun {tag}: the step on the card under the analyser counts "
+                    f"{card['flops']:.6g} FLOPs, {card['hbm_bytes']:.6g} bytes, launches "
+                    f"{pairs['launches'][0]}: "
+                    + ("the meta run's, exactly" if same else "not the meta run's (the plain "
+                       "versions run on the CPU)"))
+                out[tag]["card_equal"] = same
+            out["production"] = finish_production_cell(proc, t_cell, Path(tmp))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
 # ------------------------------------------------------------ main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3246,6 +3373,12 @@ def main() -> int:
     dist_launches, dist_train = phase_dist_train(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"dist-train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun = phase_dryrun(torch, args.seed, smi, {
+        "train": train, "moe-train": moe_train, "ssm-train": ssm_train,
+        "dense-train": dense_train})
+    torch.cuda.empty_cache()
+    log(f"dryrun: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -3298,6 +3431,7 @@ def main() -> int:
     log("dense-serve: " + json.dumps(dense))
     log("dense-train: " + json.dumps(dense_train))
     log("dist-train: " + json.dumps(dist_train))
+    log("dryrun: " + json.dumps(dryrun))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Wrapper of the decode-attention kernel (``csrc/decode_attention.cu``).
 
 On CPU tensors it runs the plain version in :mod:`.ref`; on CUDA tensors it
-launches the kernel or raises.  ``decode_attention.launches`` counts the
-kernel launches (the plain version does not count).  One call is one launch
+launches the kernel or raises; on meta tensors it checks the instance and
+returns an empty output (the dry run).  :func:`cost` is one launch's work.
+``decode_attention.launches`` counts the kernel launches (the plain version
+does not count).  One call is one launch
 of the kernel, clustered as :func:`split_plan` says, and allocates only the
 output.
 """
@@ -15,7 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import build, count_launch
+from .. import KernelCost, build, count_launch, launch
 from .ref import decode_attention_ref
 
 #: most blocks that share one (batch, kv head): a thread-block cluster
@@ -97,10 +99,33 @@ def _check_aligned(name: str, t: torch.Tensor, dims, align: int) -> None:
         )
 
 
-def _launch(q3, k_cache, v_cache, positions_q, positions_k, window, sm_scale):
+def cost(b: int, sk: int, hq: int, hkv: int, d: int, n_valid: int, item: int = 2) -> KernelCost:
+    """One launch's work over a cache of ``sk`` slots of which ``n_valid``
+    (batch, slot) pairs are attended: those K and V rows, q in and out, the
+    slot positions (one row, broadcast) and the query positions; 4 x
+    n_valid x Hq x D products, taken at the bf16 tensor-core peak (the
+    kernel multiplies on the CUDA cores in fp32, its own ceiling)."""
+    from ...launch.roofline import BF16_FLOPS
+
+    n_bytes = 2 * n_valid * hkv * d * item + 2 * b * hq * d * item + sk * 4 + b * 4
+    flops = 4 * n_valid * hq * d
+    return KernelCost(n_bytes, flops, flops, BF16_FLOPS)
+
+
+def _launch_cost(q3, k_cache, window) -> KernelCost:
+    """The cost an observer is given, from shapes alone (meta tensors hold
+    no positions; on CUDA reading them would stall the stream): every slot
+    of every row attended, within the window if there is one."""
     b, hq, d = q3.shape
     _, sk, hkv, _ = k_cache.shape
-    g = hq // hkv
+    n_valid = b * (min(sk, window) if window else sk)
+    return cost(b, sk, hq, hkv, d, n_valid, q3.element_size())
+
+
+def _check(q3, k_cache, v_cache, positions_q, positions_k) -> None:
+    """The kernel's device, dtype and instance rules."""
+    b, hq, d = q3.shape
+    g = hq // k_cache.shape[2]
     dev = q3.device
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("positions_q", positions_q), ("positions_k", positions_k)):
@@ -121,26 +146,37 @@ def _launch(q3, k_cache, v_cache, positions_q, positions_k, window, sm_scale):
         raise ValueError("decode_attention: head_dim must be the contiguous dim")
     if positions_q.stride(0) != 1 or positions_k.stride(1) != 1:
         raise ValueError("decode_attention: positions must be contiguous per row")
-    # K and V rows go to shared memory as 16-byte cp.async copies
-    _check_aligned("k_cache", k_cache, (0, 1, 2), 16)
-    _check_aligned("v_cache", v_cache, (0, 1, 2), 16)
 
-    out = torch.empty((b, hq, d), dtype=q3.dtype, device=dev)
-    n_split, split_len = split_plan(b, hkv, sk, device_sms(dev))
-    occupancy(q3.dtype, d, g, n_split)
-    rc = _kernel_fns()[0](
-        _DTYPE_CODES[q3.dtype],
-        q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        positions_q.data_ptr(), positions_k.data_ptr(), out.data_ptr(),
-        b, hkv, g, d, sk, split_len, n_split, window or 0, sm_scale,
-        q3.stride(0), q3.stride(1),
-        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        positions_k.stride(0), out.stride(0), out.stride(1),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed (cudaError {rc})")
+
+def _launch(q3, k_cache, v_cache, positions_q, positions_k, window, sm_scale):
+    """The kernel on CUDA tensors; on meta tensors its checks and output only."""
+    b, hq, d = q3.shape
+    _, sk, hkv, _ = k_cache.shape
+    g = hq // hkv
+    dev = q3.device
+    _check(q3, k_cache, v_cache, positions_q, positions_k)
+    with launch("decode_attention", lambda: _launch_cost(q3, k_cache, window)):
+        out = torch.empty((b, hq, d), dtype=q3.dtype, device=dev)
+        if dev.type == "meta":
+            return out
+        # K and V rows go to shared memory as 16-byte cp.async copies
+        _check_aligned("k_cache", k_cache, (0, 1, 2), 16)
+        _check_aligned("v_cache", v_cache, (0, 1, 2), 16)
+        n_split, split_len = split_plan(b, hkv, sk, device_sms(dev))
+        occupancy(q3.dtype, d, g, n_split)
+        rc = _kernel_fns()[0](
+            _DTYPE_CODES[q3.dtype],
+            q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            positions_q.data_ptr(), positions_k.data_ptr(), out.data_ptr(),
+            b, hkv, g, d, sk, split_len, n_split, window or 0, sm_scale,
+            q3.stride(0), q3.stride(1),
+            k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+            positions_k.stride(0), out.stride(0), out.stride(1),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"decode_attention kernel launch failed (cudaError {rc})")
     count_launch(decode_attention)
     return out
 
@@ -176,7 +212,7 @@ def decode_attention(
             q[:, 0], k_cache, v_cache, positions_q, positions_k,
             window=window, sm_scale=sm_scale,
         )
-    elif q.device.type == "cuda":
+    elif q.device.type in ("cuda", "meta"):
         out = _launch(q[:, 0], k_cache, v_cache, positions_q, positions_k, window, sm_scale)
     else:
         raise ValueError(f"decode_attention: no kernel for device {q.device}")

@@ -2,8 +2,10 @@
 
 ``flash_attention`` is a ``torch.autograd.Function``.  On CUDA tensors its
 forward launches the forward kernel and its backward the backward kernels
-(or they raise); on CPU tensors both run the plain versions in :mod:`.ref`.
-``flash_attention.launches`` counts forward launches and
+(or they raise); on CPU tensors both run the plain versions in :mod:`.ref`;
+on meta tensors both check the instance and return empty outputs (the dry
+run).  :func:`cost` is one launch's work.  ``flash_attention.launches``
+counts forward launches and
 ``flash_attention.backward_launches`` backward launches (three kernels
 each: delta, dK/dV, dQ, and a fold of the dK/dV parts where the group is
 taken in head parts); the plain versions do not count.
@@ -16,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from .. import build, count_launch
+from .. import KernelCost, build, count_launch, launch
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 #: the instances the CUDA source is compiled for, both ways (the group is a
@@ -84,6 +86,42 @@ def _check(q, k, v):
         )
 
 
+def kept_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs that the mask keeps in one (batch, head) of an
+    attention of sq queries at positions 0.. over sk keys at 0..: the work a
+    kernel that skips the rest does."""
+    import numpy as np
+
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, causal: bool, window,
+         item: int = 2, backward: bool = False) -> KernelCost:
+    """One launch's work on [b, sq, hq, d] queries over [b, sk, hkv, d] keys
+    and values of ``item`` bytes an element.  Forward: q, k, v in, out and
+    the fp32 lse out; 4 x pairs x D products.  Backward: q, k, v, out, dout
+    and lse in, dq, dk, dv out; 10 x pairs x D products (the kernels
+    execute 14: P is recomputed).  bf16 products at the bf16 tensor-core
+    peak, fp32 ones at the fp32 CUDA-core peak."""
+    from ...launch.roofline import BF16_FLOPS, FP32_FLOPS
+
+    pairs = b * hq * kept_pairs(sq, sk, causal, window)
+    io = (2 * b * sq * hq * d + 2 * b * sk * hkv * d) * item
+    lse_bytes = b * hq * sq * 4
+    flops = (10 if backward else 4) * pairs * d
+    peak = BF16_FLOPS if item == 2 else FP32_FLOPS
+    return KernelCost((2 * io if backward else io) + lse_bytes, flops, flops, peak)
+
+
+def _cost_of(q, k, causal, window, backward=False) -> KernelCost:
+    b, sq, hq, d = q.shape
+    return cost(b, sq, k.shape[1], hq, k.shape[2], d, causal, window, q.element_size(),
+                backward)
+
+
 def _strides(t: torch.Tensor, name: str):
     """(batch, seq, head) strides of a [B, S, H, D] tensor whose head dim is
     contiguous and whose rows are 16-byte aligned, as the kernel reads them."""
@@ -116,61 +154,75 @@ def _run(entry: str, a: FlashArgs) -> None:
         raise RuntimeError(f"{entry} failed (cudaError {rc})")
 
 
-def _fwd_cuda(q, k, v, causal, window, scale):
+def _fwd_kernel(q, k, v, causal, window, scale):
+    """The forward kernel on CUDA tensors; on meta tensors its checks and
+    outputs only."""
     _check(q, k, v)
     b, sq, hq, _ = q.shape
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    a = _args(q, k, v, causal, window, scale, o=out, out=out, lse=lse)
-    _run("flash_attention_fwd_launch", a)
+    with launch("flash_attention", lambda: _cost_of(q, k, causal, window)):
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        if q.device.type == "meta":
+            return out, lse
+        a = _args(q, k, v, causal, window, scale, o=out, out=out, lse=lse)
+        _run("flash_attention_fwd_launch", a)
     count_launch(flash_attention)
     return out, lse
 
 
-def _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale):
+def _bwd_kernel(q, k, v, out, lse, dout, causal, window, scale):
+    """The backward kernels on CUDA tensors; on meta tensors their checks,
+    scratch and outputs only."""
     _check(q, k, v)
     b, sq, hq, _ = q.shape
     g = hq // k.shape[2]
     if dout.device != q.device or dout.dtype != q.dtype:
         raise TypeError("flash_attention: dout must match q's device and dtype")
-    if dout.stride(3) != 1 or any((dout.stride(i) * dout.element_size()) % 16 for i in range(3)):
-        dout = dout.contiguous()  # autograd may hand over a broadcast or sliced view
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    a = _args(q, k, v, causal, window, scale, o=out, dout=dout, dq=dq, dk=dk, dv=dv,
-              lse=lse, delta=delta)
-    parts = HEAD_PARTS.get(g, 1) if q.dtype == torch.bfloat16 else 1  # fp32: never split
-    if parts > 1:
-        scratch = torch.empty((parts, 2, *k.shape), dtype=torch.float32, device=q.device)
-        a.head_parts, a.dkv_part = parts, scratch.data_ptr()
-    _run("flash_attention_bwd_launch", a)
+    with launch("flash_attention_bwd", lambda: _cost_of(q, k, causal, window, backward=True)):
+        if dout.stride(3) != 1 or any((dout.stride(i) * dout.element_size()) % 16
+                                      for i in range(3)):
+            dout = dout.contiguous()  # autograd may hand over a broadcast or sliced view
+        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+        dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+        dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+        delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        parts = HEAD_PARTS.get(g, 1) if q.dtype == torch.bfloat16 else 1  # fp32: never split
+        scratch = (torch.empty((parts, 2, *k.shape), dtype=torch.float32, device=q.device)
+                   if parts > 1 else None)
+        if q.device.type == "meta":
+            return dq, dk, dv
+        a = _args(q, k, v, causal, window, scale, o=out, dout=dout, dq=dq, dk=dk, dv=dv,
+                  lse=lse, delta=delta)
+        if scratch is not None:
+            a.head_parts, a.dkv_part = parts, scratch.data_ptr()
+        _run("flash_attention_bwd_launch", a)
     count_launch(flash_attention, "backward_launches")
     return dq, dk, dv
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True, window: Optional[int] = None):
     """(out [B, Sq, Hq, D], lse [B, Hq, Sq] fp32): the forward kernel on
-    CUDA tensors, its plain version on CPU tensors; no autograd."""
+    CUDA tensors (empty outputs on meta tensors), its plain version on CPU
+    tensors; no autograd."""
     scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, sm_scale=scale)
-    if q.device.type == "cuda":
-        return _fwd_cuda(q, k, v, causal, window, scale)
+    if q.device.type in ("cuda", "meta"):
+        return _fwd_kernel(q, k, v, causal, window, scale)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, window: Optional[int] = None):
     """(dq, dk, dv) from what the forward saved: the backward kernels on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (empty outputs on meta tensors), the plain version on CPU
+    tensors."""
     scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(
             q, k, v, out, lse, dout, causal=causal, window=window, sm_scale=scale
         )
-    if q.device.type == "cuda":
-        return _bwd_cuda(q, k, v, out, lse, dout, causal, window, scale)
+    if q.device.type in ("cuda", "meta"):
+        return _bwd_kernel(q, k, v, out, lse, dout, causal, window, scale)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 

@@ -1,8 +1,10 @@
 """Wrapper of the RMSNorm kernels (``rmsnorm.py``, Triton).
 
 On CPU tensors it runs the plain versions in :mod:`.ref`; on CUDA tensors it
-launches the kernels or raises.  The plain variant is differentiable: its
-backward is ``rmsnorm_bwd_kernel`` + ``rmsnorm_dw_kernel`` on CUDA and
+launches the kernels or raises; on meta tensors it checks the instance and
+returns empty outputs (the dry run).  :func:`cost` is one launch's work.
+The plain variant is differentiable: its backward is
+``rmsnorm_bwd_kernel`` + ``rmsnorm_dw_kernel`` on CUDA and
 ``rmsnorm_bwd_ref`` on the CPU.  ``rmsnorm.launches`` counts the forward
 launches of the plain variant, ``rmsnorm.backward_launches`` its backward
 launches and ``rmsnorm.residual_launches`` those of the residual variant
@@ -15,7 +17,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .. import count_launch
+from .. import KernelCost, count_launch, launch
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref, rmsnorm_residual_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -75,6 +77,27 @@ def _fwd_launch(rows: int, d: int, sms: int) -> Tuple[int, int, int, int]:
     return tile, a, bb, max(4, min(16, _pow2_floor(tile * (a + bb) / 2048)))
 
 
+def cost(rows: int, d: int, item: int = 2, w_item: int = 2, residual: bool = False,
+         backward: bool = False) -> KernelCost:
+    """One launch's work on ``rows`` rows of ``d`` elements of ``item``
+    bytes and a scale of ``w_item`` bytes an element, at the fp32 CUDA-core
+    peak.  Forward: x in, out, the scale; 5 operations an element.  With
+    the residual: x and r in, the norm and the sum out.  Backward: x, dy in,
+    dx out, the scale in and its gradient out; 10 operations an element."""
+    from ...launch.roofline import FP32_FLOPS
+
+    if backward:
+        n_bytes, ops = 3 * rows * d * item + 2 * d * w_item, 10 * rows * d
+    else:
+        n_bytes, ops = (4 if residual else 2) * rows * d * item + d * w_item, 5 * rows * d
+    return KernelCost(n_bytes, ops, ops, FP32_FLOPS)
+
+
+def _cost_of(x, w, residual=False, backward=False) -> KernelCost:
+    d = x.shape[-1]
+    return cost(x.numel() // max(d, 1), d, x.element_size(), w.element_size(), residual, backward)
+
+
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -99,46 +122,56 @@ def _check(x, w, residual):
 
 
 def _launch(x, w, eps, residual):
-    from . import rmsnorm as kernel  # imports triton: CUDA path only
-
+    """The forward kernel on CUDA tensors; on meta tensors its checks and
+    outputs only."""
     _check(x, w, residual)
     d = x.shape[-1]
     x2 = x.view(-1, d)
     rows = x2.shape[0]
-    out = torch.empty_like(x2)
-    res_out = torch.empty_like(x2) if residual is not None else out
-    r2 = residual.view(-1, d) if residual is not None else x2
-    tile, block_a, block_b, warps = _fwd_launch(rows, d, _sms(x.device))
-    if rows:
-        kernel.rmsnorm_kernel[(-(-rows // tile),)](
-            x2, r2, w, out, res_out,
-            x2.stride(0), r2.stride(0), out.stride(0), res_out.stride(0),
-            rows, d, eps,
-            HAS_RESIDUAL=residual is not None,
-            ROWS=tile, BLOCK_A=block_a, BLOCK_B=block_b,
-            num_warps=warps,
-        )
-        if residual is None:
-            count_launch(rmsnorm)
-        else:
-            count_launch(rmsnorm, "residual_launches")
+    name = "rmsnorm" if residual is None else "rmsnorm_residual"
+    with launch(name, lambda: _cost_of(x, w, residual is not None)):
+        out = torch.empty_like(x2)
+        res_out = torch.empty_like(x2) if residual is not None else out
+        if rows and x.device.type == "cuda":
+            from . import rmsnorm as kernel  # imports triton: CUDA path only
+
+            r2 = residual.view(-1, d) if residual is not None else x2
+            tile, block_a, block_b, warps = _fwd_launch(rows, d, _sms(x.device))
+            kernel.rmsnorm_kernel[(-(-rows // tile),)](
+                x2, r2, w, out, res_out,
+                x2.stride(0), r2.stride(0), out.stride(0), res_out.stride(0),
+                rows, d, eps,
+                HAS_RESIDUAL=residual is not None,
+                ROWS=tile, BLOCK_A=block_a, BLOCK_B=block_b,
+                num_warps=warps,
+            )
+            count_launch(rmsnorm, "launches" if residual is None else "residual_launches")
     if residual is None:
         return out.view(x.shape)
     return out.view(x.shape), res_out.view(x.shape)
 
 
 def _launch_bwd(dy, x, w, eps):
-    from . import rmsnorm as kernel  # imports triton: CUDA path only
-
+    """The backward kernels on CUDA tensors; on meta tensors their checks
+    and outputs only."""
     _check(x, w, None)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("rmsnorm backward: dy must match x in shape, dtype and device")
+    with launch("rmsnorm_bwd", lambda: _cost_of(x, w, backward=True)):
+        return _bwd_kernels(dy, x, w, eps)
+
+
+def _bwd_kernels(dy, x, w, eps):
     d = x.shape[-1]
     x2 = x.view(-1, d)
     dy2 = dy.contiguous().view(-1, d)
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
+    if x.device.type == "meta":
+        return dx.view(x.shape), dw
+    from . import rmsnorm as kernel  # imports triton: CUDA path only
+
     # each program owns a run of whole tiles; fewer rows than two an SM take
     # one row a program (``_row_block``) and no pipeline
     sms = _sms(x.device)
@@ -175,10 +208,11 @@ def rmsnorm_bwd(
     dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx, d(scale)) of the plain variant: the backward kernels on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (empty outputs on meta tensors), the plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(dy, x, w, eps)
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         return _launch_bwd(dy, x, w, eps)
     raise ValueError(f"rmsnorm: no kernel for device {x.device}")
 
@@ -217,7 +251,7 @@ def rmsnorm(
         raise ValueError(f"rmsnorm: w {tuple(w.shape)} for rows of {d}")
     if residual is not None and residual.shape != x.shape:
         raise ValueError(f"rmsnorm: residual {tuple(residual.shape)} vs x {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     if residual is None:
         return RMSNorm.apply(x, w, eps)

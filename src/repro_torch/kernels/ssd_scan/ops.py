@@ -6,9 +6,11 @@ launches the forward kernel and saves the kernel's own scratch (cum, C B^T
 and the state entering each chunk), and its backward launches the backward
 kernel on them, or either raises; on CPU tensors they run the plain
 versions in :mod:`.ref` (``ssd_ref``, ``ssd_bwd_ref``), with or without an
-initial state.  ``ssd.launches`` counts forward calls on the card and
-``ssd.backward_launches`` backward calls (six kernels each); the plain
-versions do not count.
+initial state; on meta tensors they check the instance and return the
+kernels' empty outputs and scratch (the dry run).  :func:`cost` and
+:func:`bwd_cost` are one launch's work.  ``ssd.launches`` counts forward
+calls on the card and ``ssd.backward_launches`` backward calls (six
+kernels each); the plain versions do not count.
 
 The forward kernel runs as five passes (``PASSES``) over scratch that
 :func:`workspace` allocates, the backward as six (``BWD_PASSES``) over
@@ -26,7 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import build, count_launch
+from .. import KernelCost, build, count_launch, launch
 from .ref import (
     ssd_bwd_carry_ref, ssd_bwd_dA_ref, ssd_bwd_dc_ref, ssd_bwd_dprev_ref, ssd_bwd_dx_ref,
     ssd_bwd_fold_ref, ssd_bwd_ref, ssd_carry_ref, ssd_cb_ref, ssd_chunk_states_ref,
@@ -191,6 +193,61 @@ def _check_kernel(x, dA, B, C, q, initial_state) -> None:
         raise ValueError("ssd: the last dim of x, B and C must be contiguous")
 
 
+def cost(b: int, s: int, h: int, p: int, n: int, g: int, q: int, init: bool,
+         item: int = 4) -> KernelCost:
+    """One forward launch's work: C B^T once per (b, chunk, group) and (L o
+    S) X per (b, h, chunk), both on the lower triangle only (Q(Q+1)/2
+    pairs); per (b, h, chunk) the state term C state^T (none in the first
+    chunk without an initial state) and the state update, 2QPN each.  Bytes:
+    x in and y out (``item`` bytes an element), dA, B and C in their group
+    layout, the final (and initial) state.  The products run in 3xTF32,
+    three TF32 products for each fp32 one, at the TF32 tensor-core peak."""
+    from ...launch.roofline import TF32_FLOPS
+
+    chunks, tri = s // q, q * (q + 1) // 2
+    flops = (b * chunks * g * 2 * n * tri + b * h * chunks * 2 * p * tri
+             + b * h * (2 * chunks - (0 if init else 1)) * 2 * q * p * n)
+    n_bytes = (2 * b * s * h * p * item  # x in, y out
+               + b * s * h * 4  # dA
+               + 2 * b * s * g * n * item  # B, C in their group layout
+               + b * h * p * n * 4 * (2 if init else 1))  # final (and initial) state
+    return KernelCost(n_bytes, flops, 3 * flops, TF32_FLOPS)
+
+
+def bwd_cost(b: int, s: int, h: int, p: int, n: int, g: int, q: int, init: bool,
+             dfinal: bool) -> KernelCost:
+    """One backward launch's work (fp32), per (b, h, chunk): four products
+    on the lower triangle: dy x^T and S^T dy over P, dM^T C and dM B over
+    N; and four Q x P x N state products: (dy o e)^T C and (dy o e) prev,
+    none in the first chunk without an initial state (prev is 0 and
+    d_initial unused), B g^T and x g, none in the last chunk without dfinal
+    (g is 0).  Bytes: x, dy in, dx out; cum in, d_dA out; B, C in, dB, dC
+    out; C B^T and prev in; the initial state's and dfinal's.  3xTF32, as
+    the forward."""
+    from ...launch.roofline import TF32_FLOPS
+
+    chunks, tri = s // q, q * (q + 1) // 2
+    flops = (b * h * chunks * 2 * tri * (2 * p + 2 * n)
+             + b * h * 2 * q * p * n * 2 * ((chunks - (0 if init else 1))
+                                            + (chunks - (0 if dfinal else 1))))
+    n_bytes = 4 * (3 * b * s * h * p  # x, dy in, dx out
+                   + 2 * b * s * h  # cum in, d_dA out
+                   + 4 * b * s * g * n  # B, C in, dB, dC out
+                   + b * chunks * g * q * q  # C B^T in
+                   + b * chunks * h * p * n  # prev in
+                   + b * h * p * n * ((1 if init else 0) + (1 if dfinal else 0)))
+    return KernelCost(n_bytes, flops, 3 * flops, TF32_FLOPS)
+
+
+def _cost_of(x, B, q: int, init: bool, backward: bool = False,
+             dfinal: bool = False) -> KernelCost:
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if backward:
+        return bwd_cost(b, s, h, p, n, g, q, init, dfinal)
+    return cost(b, s, h, p, n, g, q, init, x.element_size())
+
+
 def workspace(
     x: torch.Tensor,
     dA: torch.Tensor,
@@ -202,7 +259,7 @@ def workspace(
     """The inputs of :func:`ssd` with its scratch and outputs allocated (not
     filled), for :func:`run_pass` and :func:`plain_pass`."""
     q = _check(x, dA, B, C, chunk, initial_state)
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         _check_kernel(x, dA, B, C, q, initial_state)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -300,7 +357,7 @@ def bwd_workspace(
         dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     if dy.shape != x.shape or (dfinal is not None and dfinal.shape != (b, h, p, n)):
         raise ValueError(f"ssd: dy {tuple(dy.shape)} / dfinal for x {tuple(x.shape)}")
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         _check_bwd_kernel(x, B, ws.C)
         if dy.dtype != torch.float32 or (dfinal is not None and dfinal.dtype != torch.float32):
             raise TypeError("ssd: dy and dfinal must be float32")
@@ -418,11 +475,15 @@ class SsdScan(torch.autograd.Function):
         if x.device.type == "cpu":
             ctx.save_for_backward(x, dA, B, C, initial_state)
             return ssd_ref(x, dA, B, C, q, initial_state)
-        ws = workspace(x, dA, B, C, q, initial_state)
-        if any(ctx.needs_input_grad):
-            _check_bwd_kernel(x, B, C)  # refuse before the forward, not in the backward
-        _launch(ws, _ALL)
-        count_launch(ssd)
+        ctx.init = initial_state is not None
+        with launch("ssd_scan", lambda: _cost_of(x, B, q, ctx.init)):
+            ws = workspace(x, dA, B, C, q, initial_state)
+            if any(ctx.needs_input_grad):
+                _check_bwd_kernel(x, B, C)  # refuse before the forward, not in the backward
+            if x.device.type == "cuda":
+                _launch(ws, _ALL)
+        if x.device.type == "cuda":
+            count_launch(ssd)
         ctx.save_for_backward(x, B, C, ws.cum, ws.cb, ws.prev)
         return ws.y, ws.final
 
@@ -439,9 +500,13 @@ class SsdScan(torch.autograd.Function):
             x, B, C, cum, cb, prev = saved
             fwd = Workspace(x=x, dA=None, B=B, C=C, chunk=q, initial_state=None, cum=cum, cb=cb,
                             states=None, prev=prev, y=None, final=None)
-            bw = bwd_workspace(fwd, dy, dfinal)
-            _launch_bwd(bw, _BWD_ALL)
-            count_launch(ssd, "backward_launches")
+            with launch("ssd_scan_bwd",
+                        lambda: _cost_of(x, B, q, ctx.init, True, dfinal is not None)):
+                bw = bwd_workspace(fwd, dy, dfinal)
+                if x.device.type == "cuda":
+                    _launch_bwd(bw, _BWD_ALL)
+            if x.device.type == "cuda":
+                count_launch(ssd, "backward_launches")
             dx, d_dA, dB, dC, d_init = bw.dx, bw.d_dA, bw.dB, bw.dC, bw.d_init
         return dx, d_dA, dB, dC, None, d_init if ctx.needs_input_grad[5] else None
 
@@ -459,7 +524,7 @@ def ssd(
     final_state [B, H, P, N] fp32), differentiable in x, dA, B, C and the
     initial state."""
     q = _check(x, dA, B, C, chunk, initial_state)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd: no kernel for device {x.device}")
     return SsdScan.apply(x, dA, B, C, q, initial_state)
 

@@ -162,6 +162,7 @@ def mamba_decode_step(
     """O(1) decode of one token; returns out [B, 1, d_model].  Unlike the JAX
     function, which returns a new cache, the state and the conv windows are
     written into ``cache`` in place."""
+    _unsharded(u)
     dims = mamba_dims(cfg)
     b = u.shape[0]
     h, p, n, g = dims["n_heads"], dims["head_dim"], dims["d_state"], dims["n_groups"]

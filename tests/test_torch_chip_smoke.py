@@ -151,6 +151,9 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         DENSE_PLAIN_SEQ=16,
         # phase 14: tiny-moe uncut through the sharded step over gloo (one rank)
         DIST_MODEL="tiny-moe", DIST_LAYERS=2, DIST_STEPS=3,
+        # phase 15: the tiny trained cells on meta; the production cell is a
+        # cheap one (the script's takes ~15 s on a host CPU)
+        DRYRUN_CELL=("gemma3-1b", "prefill_32k"),
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -162,6 +165,11 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
             max_active_clusters=1, smem_bytes=0),
     ).items():
         monkeypatch.setattr(cs, name, value)
+    # phase 15's meta runs check the kernels' instances as the card does:
+    # admit the tiny configs' head dim and state size
+    monkeypatch.setattr(fa_ops, "HEAD_DIMS", fa_ops.HEAD_DIMS + (16,))
+    monkeypatch.setattr(ssd_ops, "HEAD_DIMS", ssd_ops.HEAD_DIMS + (16,))
+    monkeypatch.setattr(ssd_ops, "D_STATES", ssd_ops.D_STATES + (8, 16))
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
 

@@ -71,11 +71,13 @@ print(" ".join(names))
     names = set(res.stdout.split())
     # every module of the port, the runtime copy (core, backends, data,
     # analysis) and the distributed layer included
-    assert len(names) >= 89
+    assert len(names) >= 93
     assert {"repro_torch.distributed.context", "repro_torch.distributed.sharding_rules",
             "repro_torch.distributed.pipeline", "repro_torch.distributed.moe_parallel",
             "repro_torch.distributed.tensor_parallel", "repro_torch.optim.compression",
-            "repro_torch.launch.mesh"} <= names
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.op_analysis", "repro_torch.launch.roofline",
+            "repro_torch.launch.kernel_substitution"} <= names
 
 
 def _no_cuda(monkeypatch):
