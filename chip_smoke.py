@@ -24,6 +24,13 @@ Phases, each of which must pass (any failure exits non-zero):
                 twice.  B2
                 logs its split plan (blocks a cluster, slots a block) and
                 torch.profiler must see one call run exactly one kernel.
+                B2's partial mode (fp32 output and log-sum-exp over one
+                rank's slots) runs at the per-rank shapes of gemma3-1b's
+                decode_32k and long_500k cells on the production mesh, and
+                on one cache cut into 8 ranges (one keeping no slot) whose
+                folded partials must equal B2 on the whole cache within its
+                gate; B3a's external-statistic mode (the row statistics,
+                then the scale, both ways) at mamba2-370m's gate-norm rows;
                 h2o-danube's phase 12 case runs the forward only, as its path
                 does; granite-34b's G 48 runs both ways at its serve and its
                 training shape (phase 13);
@@ -41,7 +48,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 attention and every norm, forward, recompute and backward, went
                 through the kernels; the loss must fall;
   6. ssm     -- mamba2-370m and zamba2-1.2b at full width, cut of depth only
-                to SSM_SERVE_LAYERS (16 of 48, 14 of 38) for time (random
+                to SSM_SERVE_LAYERS (8 of 48, 14 of 38) for time (random
                 weights from --seed), served from checkpoint DU files by
                 DecodeEngine: 4 prompts of 489 tokens plus 24 new tokens
                 (512 fed tokens, two SSD chunks of 256).  Decode logits are
@@ -135,7 +142,17 @@ Phases, each of which must pass (any failure exits non-zero):
                 then the int8 compressed all-reduce (``compress_tree_psum``)
                 over NCCL on the loss's gradient tree, twice (the second
                 with the first's residual), held to its plain version
-                (quantise, dequantise, the residual) bit for bit;
+                (quantise, dequantise, the residual) bit for bit; then
+                mamba2-370m at every width cut to DIST_SSM_LAYERS through the
+                sharded step (the mixer head-parallel, its gate norm on B3a's
+                external-statistic mode) on phase 11's batch, launches exact,
+                held to the unsharded step within DIST_SSM_LOSS_TOL /
+                DIST_SSM_GNORM_TOL and, in fp32, every gradient leaf within
+                DIST_SSM_GRAD_TOL; and gemma3-1b at every width cut to
+                DIST_DECODE_LAYERS, sharded on the mesh (its caches' slots
+                split: B2's partial mode and the fold), decoding phase 4's
+                prompts past its ring's wrap: tokens equal to the unsharded
+                decode's, logits within phase 4's gates;
  15. dryrun  -- the launch layer (``repro_torch.launch``) against the card:
                 the trained cells of phases 5, 9, 11 and 13 at their shapes,
                 unsharded, on meta tensors under the op analyser: their kernel
@@ -144,11 +161,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 phases measured; the roofline's step time is logged beside the
                 measured s/step; phase 5's step, run once more on the card
                 under the analyser, must count the FLOPs, bytes and launches
-                of its meta run exactly; and DRYRUN_CELL (granite-moe-3b-a800m
-                x train_4k) runs as ``python -m repro_torch.launch.dryrun`` on
-                the fake 256-rank production mesh in a process that sees no
-                card, and must be OK, its peak under 80 GB, within
-                DRYRUN_TIMEOUT_S;
+                of its meta run exactly; and DRYRUN_CELLS (granite-moe-3b-a800m
+                and mamba2-370m x train_4k, gemma3-1b x decode_32k) each run
+                as ``python -m repro_torch.launch.dryrun`` on the fake
+                256-rank production mesh in a process that sees no card, and
+                must be OK, their peaks under 80 GB, within DRYRUN_TIMEOUT_S;
  16. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
@@ -202,10 +219,11 @@ SSM_MODELS = ("mamba2-370m", "zamba2-1.2b")
 # phase 6 serves each model cut of depth only to these layers for time: its
 # decode loops are host-bound (74 / 63 ms a step at full depth on a slow
 # host, 139 s for the phase), and the script must stay under 600 s (a
-# third of the depth since phase 15 came); the cut keeps every width, the
+# third of the depth since phase 15 came, mamba2-370m a sixth since phase
+# 14's sharded decode came: 8 layers); the cut keeps every width, the
 # chunk boundary, and zamba2's shared attention block (2 occurrences) and
 # tail; the prefill runs at full depth
-SSM_SERVE_LAYERS = {"mamba2-370m": 16, "zamba2-1.2b": 14}
+SSM_SERVE_LAYERS = {"mamba2-370m": 8, "zamba2-1.2b": 14}
 SSM_PROMPT_LEN, SSM_NEW_TOKENS, SSM_MAX_LEN, SSM_BATCH = 489, 24, 512, 4
 SSM_CHECK_POSITIONS = (0, 255, 256, 511)  # position 0 first; either side of the chunk boundary
 STATE_TOL = 2e-2  # max |engine state - forward state| over max(1, max |forward state|)
@@ -355,6 +373,19 @@ SSD_EDGE_CASES = [
     ("initial state, 128 chunks", 1, 32768, 4, 64, 128, 1, "float32", True),
 ]
 SSD_CHUNK = 256
+# B2's partial mode at the per-rank shapes the sharding rules give these
+# cells on the production (32, 8) mesh (the dry run's), each cache length's
+# range of the mesh's last rank at the dry run's decode position
+DECODE_PARTIAL_CELLS = [("gemma3-1b", "decode_32k"), ("gemma3-1b", "long_500k")]
+# and one gemma3-1b global cache cut into 8 ranges at position 800 (the
+# last range holds only slots never written: no kept slot), the ranges'
+# partials folded and held to B2 on the whole cache: (B, slots, Hq, Hkv, D,
+# position, ranges)
+DECODE_FOLD_CASE = (4, 1024, 4, 1, 256, 800, 8)
+# B3a's external-statistic mode: (rows, local columns, row width):
+# mamba2-370m's gate norm on phase 14's training rows (4 x 4096) whole (one
+# rank), and one rank's 256 columns of its 2048 at model 8
+RMSNORM_EXT_CASES = [(16384, 2048, 2048), (16384, 256, 2048)]
 # SSD backward (B4's backward, fp32): (label, B, S, H, P, N, G, chunk, initial
 # state, dfinal, unaligned rows); the timed cases are phase 11's training
 # shapes, the edge cases are only held against the plain version: an initial
@@ -413,11 +444,32 @@ DIST_MODEL = "granite-moe-3b-a800m"
 DIST_LAYERS = 8
 DIST_STEPS = 3
 
-# phase 15: the production cell run in a subprocess on the fake 256-rank
+# phase 14 also: DIST_SSM_MODEL at every width, cut of depth only to
+# DIST_SSM_LAYERS of its 48 layers, through the sharded step (its mixer
+# head-parallel, the gate norm on B3a's external-statistic mode) on phase
+# 11's batch, held to the unsharded step within DIST_SSM_LOSS_TOL (loss and
+# CE) and DIST_SSM_GNORM_TOL (grad norm), relative: bf16 rounding of the gate
+# norm's output, whose statistic the two sum in another order; and in fp32 at
+# DIST_SSM_GRAD_LAYERS layers on DIST_SSM_GRAD_SEQ tokens every gradient
+# leaf within DIST_SSM_GRAD_TOL of its max |g|
+DIST_SSM_MODEL = "mamba2-370m"
+DIST_SSM_LAYERS = 8
+DIST_SSM_LOSS_TOL, DIST_SSM_GNORM_TOL = 2e-3, 2e-2
+DIST_SSM_GRAD_LAYERS, DIST_SSM_GRAD_SEQ, DIST_SSM_GRAD_TOL = 2, 1024, 1e-4
+# and DIST_DECODE_MODEL at every width, cut of depth only to
+# DIST_DECODE_LAYERS (one 5 swa : 1 global group), sharded on the (1, 1)
+# mesh (its caches' slots split over model: B2's partial mode and the fold),
+# decoding phase 4's prompts past the 512-slot ring's wrap: its tokens equal
+# the unsharded decode's, its logits within phase 4's gates
+DIST_DECODE_MODEL = "gemma3-1b"
+DIST_DECODE_LAYERS = 6
+
+# phase 15: the production cells run in subprocesses on the fake 256-rank
 # mesh, without a card, within DRYRUN_TIMEOUT_S; each predicted train-step
 # peak within DRYRUN_PEAK_TOL of the one its phase measured
-DRYRUN_CELL = ("granite-moe-3b-a800m", "train_4k")
-DRYRUN_TIMEOUT_S = 60.0
+DRYRUN_CELLS = [("granite-moe-3b-a800m", "train_4k"), ("mamba2-370m", "train_4k"),
+                ("gemma3-1b", "decode_32k")]
+DRYRUN_TIMEOUT_S = 120.0
 DRYRUN_PEAK_TOL = 0.10
 
 SSM_REMAT_LAYERS = 4
@@ -626,6 +678,10 @@ def counters():
         ("rmsnorm_bwd", norm_ops.rmsnorm, "backward_launches"),
         ("ssd_scan", ssd_ops.ssd, "launches"),
         ("ssd_scan_bwd", ssd_ops.ssd, "backward_launches"),
+        ("decode_attention_partial", dec_ops.decode_attention, "partial_launches"),
+        ("rmsnorm_stat", norm_ops.rmsnorm, "stat_launches"),
+        ("rmsnorm_ext", norm_ops.rmsnorm, "ext_launches"),
+        ("rmsnorm_ext_bwd", norm_ops.rmsnorm, "ext_backward_launches"),
     ]
 
 
@@ -744,6 +800,204 @@ def decode_cases(torch, timer, gen):
                 f"bytes {cost.bytes / HBM_BYTES_PER_S * 1e3:.4f}, ops at the fp32 CUDA-core "
                 f"rate {fp32_ms:.4f}), max|err| {err:.2e} (rtol 2^-7, atol 1e-5)")
     return cases
+
+
+def decode_partial_shapes() -> list:
+    """(label, B, local slots, slots, first slot, Hq, Hkv, D, window,
+    position) of B2's partial mode at DECODE_PARTIAL_CELLS' per-rank shapes:
+    each distinct cache length as ``cache_specs`` places it on the
+    production (32, 8) mesh (batch over data, slots over data and model
+    where the batch does not divide), the range of the mesh's last rank,
+    at the dry run's decode position (seq_len - 1)."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.distributed import DistContext, cache_specs
+    from repro_torch.launch import AbstractMesh, production_layout
+    from repro_torch.launch.dryrun import PER_HOST, WORLD
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import _kind_window
+
+    dims, axes = production_layout(WORLD, PER_HOST, False)
+    ctx = DistContext(AbstractMesh(dims, axes), tuple(a for a in axes if a != "model"))
+    size = dict(zip(axes, dims))
+
+    def ways(entry):
+        names = (entry,) if isinstance(entry, str) else (entry or ())
+        return math.prod(size[a] for a in names)
+
+    out = []
+    for arch, shape_name in DECODE_PARTIAL_CELLS:
+        cfg, shape = get_config(arch), get_shape(shape_name)
+        cache = build_model(cfg, device="meta").init_cache(shape.global_batch, shape.seq_len)
+        specs = cache_specs(cache, cfg, ctx)
+        seen = set()
+        for key, part in cache["groups"].items():
+            kind = cfg.pattern[int(key[3:])]
+            b, sk = part["k"].shape[1], part["k"].shape[2]
+            spec = specs["groups"][key]["k"]
+            n = sk // ways(spec[2])
+            if sk in seen:
+                continue
+            seen.add(sk)
+            label = f"{arch} {shape_name} {'ring' if _kind_window(kind, cfg) else 'global'}"
+            out.append((label, b // ways(spec[1]), n, sk, sk - n, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim_, _kind_window(kind, cfg), shape.seq_len - 1))
+    return out
+
+
+def check_lse(name, lse, ref) -> float:
+    """The partial mode's log-sum-exp against its plain version's: -inf
+    exactly where the plain version's is, the rest within 1e-4 absolute."""
+    empty = ref == float("-inf")
+    if not bool((lse[empty] == float("-inf")).all()) or not bool(lse[~empty].isfinite().all()):
+        raise AssertionError(f"{name}: lse is -inf at other rows than its plain version's")
+    err = (lse[~empty] - ref[~empty]).abs().max().item() if bool((~empty).any()) else 0.0
+    if err > 1e-4:
+        raise AssertionError(f"{name}: lse max |err| {err:.3e} beyond 1e-4")
+    return err
+
+
+def decode_partial_cases(torch, timer, gen):
+    """B2's partial mode at per-rank shapes, then the 8-range fold against
+    B2 on the whole cache; each timed with its bound."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_partial_ref
+    from repro_torch.models.attention import ring_positions
+
+    cases = []
+    for label, b, n, sk, lo, hq, hkv, d, window, pos in decode_partial_shapes():
+        plan = decode_plan(torch, ops, b, hkv, n, d, hq // hkv)
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+            q, k, v = rnd(b, 1, hq, d), rnd(b, n, hkv, d), rnd(b, n, hkv, d)
+            pos_k = ring_positions(pos, sk, b, DEVICE, start=lo, count=n)
+            pos_q = torch.full((b,), pos, device=DEVICE, dtype=torch.int32)
+            out, lse = ops.decode_attention_partial(q, k, v, pos_q, pos_k, window=window)
+            ref, ref_lse = decode_attention_partial_ref(q[:, 0], k, v, pos_q, pos_k,
+                                                        window=window)
+            sync(torch)
+            name = f"decode_attention_partial {label} B={b} slots {lo}-{lo + n - 1} of {sk}"
+            err = max(check_close(f"{name} {dtype}", out, ref, 1e-4, 1e-5),
+                      check_lse(f"{name} {dtype}", lse, ref_lse))
+            if dtype != torch.bfloat16:
+                log(f"kernels: {name} fp32 max|err| {err:.2e} (out rtol 1e-4, lse 1e-4)")
+                continue
+            dpos = pos_q[:, None] - pos_k
+            valid = (pos_k >= 0) & (dpos >= 0)
+            if window is not None:
+                valid &= dpos < window
+            cost = ops.cost(b, n, hq, hkv, d, int(valid.sum()), partial=True)
+            bound, by = bound_ms(cost.bytes, cost.ops, cost.peak)
+            ms = timer(lambda: ops.decode_attention_partial(q, k, v, pos_q, pos_k, window=window))
+            plain = timer(lambda: decode_attention_partial_ref(q[:, 0], k, v, pos_q, pos_k,
+                                                               window=window))
+            # no single PyTorch call returns a masked GQA decode's output with
+            # its log-sum-exp
+            cases.append(dict(case=label, B=b, slots=n, of=sk, first=lo, Hq=hq, Hkv=hkv, D=d,
+                              window=window, pos=pos, dtype="bfloat16", plan=plan, ms=ms,
+                              plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                              max_abs_err=err))
+            log(f"kernels: {name} {hq}/{hkv}x{d} bf16: {ms:.4f} ms (plain {plain:.4f}, bound "
+                f"{bound:.4f} by {by}; split plan n_split {plan['n_split']} x "
+                f"{plan['split_len']}), max|err| {err:.2e} (out rtol 1e-4, lse 1e-4)")
+    # one cache cut into ranges, the partials folded, against B2 on it whole
+    b, sk, hq, hkv, d, pos, ranks = DECODE_FOLD_CASE
+    n = sk // ranks
+    q = torch.randn(b, 1, hq, d, generator=gen, device=DEVICE).to(torch.bfloat16)
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2))
+    pos_q = torch.full((b,), pos, device=DEVICE, dtype=torch.int32)
+    pos_k = ring_positions(pos, sk, b, DEVICE)
+    ranges = [(r * n, ring_positions(pos, sk, b, DEVICE, start=r * n, count=n))
+              for r in range(ranks)]
+
+    def folded():
+        parts = [ops.decode_attention_partial(q, k[:, lo:lo + n], v[:, lo:lo + n], pos_q, pk)
+                 for lo, pk in ranges]
+        lses = torch.stack([p[1] for p in parts])
+        return ops.fold_partials(torch.stack([p[0] for p in parts]), lses).to(q.dtype), lses
+
+    out, lses = folded()
+    whole = ops.decode_attention(q, k, v, pos_q, pos_k)[:, 0]
+    sync(torch)
+    empty = [r for r in range(ranks) if bool((lses[r] == float("-inf")).all())]
+    if not empty:
+        raise AssertionError("decode_attention_partial fold: no range without a kept slot")
+    name = f"decode_attention_partial fold of {ranks} ranges B={b} Sk={sk} pos={pos}"
+    err = check_close(name, out, whole, BF16_ULP, 1e-5)
+    cost = ops.cost(b, sk, hq, hkv, d, b * (pos + 1), partial=True)
+    bound, by = bound_ms(cost.bytes, cost.ops, cost.peak)
+    ms = timer(lambda: folded())
+    plain = timer(lambda: ops.decode_attention(q, k, v, pos_q, pos_k))
+    cases.append(dict(case=f"fold of {ranks} ranges", B=b, slots=n, of=sk, Hq=hq, Hkv=hkv, D=d,
+                      pos=pos, dtype="bfloat16", empty_ranges=empty, ms=ms, plain_ms=plain,
+                      library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err))
+    log(f"kernels: {name}: ranges {empty} keep no slot; the fold equals B2 on the whole cache "
+        f"within its gate, max|err| {err:.2e} (rtol 2^-7, atol 1e-5); {ranks} partial launches "
+        f"and the fold {ms:.4f} ms, B2 whole {plain:.4f} ms, bound {bound:.4f} by {by}")
+    return cases
+
+
+def rmsnorm_ext_cases(torch, timer, gen):
+    """B3a's external-statistic mode at RMSNORM_EXT_CASES, both ways: the
+    row statistics (rmsnorm_stat), the forward and the backward against
+    their plain versions, each timed with its bound.  Returns (stat, ext,
+    ext_bwd) case lists."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import (rmsnorm_ext_bwd_ref, rmsnorm_ext_ref,
+                                                 row_stat_ref)
+
+    eps = 1e-6
+    stat_cases, fwd_cases, bwd_cases = [], [], []
+    for rows, d, width in RMSNORM_EXT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            # this rank's columns are the first d of rows of ``width``
+            xf = (torch.randn(rows, width, generator=gen, device=DEVICE) * 3).to(dtype)
+            dyf = torch.randn(rows, width, generator=gen, device=DEVICE).to(dtype)
+            wf = (torch.randn(width, generator=gen, device=DEVICE) * 0.1).to(dtype)
+            x, dy, w = xf[:, :d].contiguous(), dyf[:, :d].contiguous(), wf[:d].contiguous()
+            ss, c = ops.row_stat(xf), ops.row_stat(xf, dyf, wf)
+            rss, rc = row_stat_ref(xf), row_stat_ref(xf, dyf, wf)
+            out = ops.rmsnorm_ext(x, w, ss, width, eps)
+            dx, dw = ops.rmsnorm_ext_bwd(dy, x, w, ss, c, width, eps)
+            ref = rmsnorm_ext_ref(x, w, ss, width, eps)
+            rdx, rdw = rmsnorm_ext_bwd_ref(dy, x, w, ss, c, width, eps)
+            sync(torch)
+            name = f"rmsnorm_ext rows={rows} D={d} of {width} {dtype}"
+            rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-5
+            e_stat = max(check_close(name + " stat", ss, rss, 1e-5, 1e-5 * rss.abs().max().item()),
+                         check_close(name + " stat dy", c, rc, 1e-5,
+                                     1e-5 * rc.abs().max().item()))
+            e_fwd = check_close(name, out, ref, rtol, 1e-5)
+            e_bwd = max(check_close(name + " dx", dx, rdx, rtol, 1e-5),
+                        check_close(name + " dscale", dw, rdw, rtol,
+                                    1e-5 * max(1.0, rdw.float().abs().max().item())))
+            if dtype != torch.bfloat16:
+                log(f"kernels: {name} max|err| stat {e_stat:.2e} fwd {e_fwd:.2e} bwd "
+                    f"{e_bwd:.2e}")
+                continue
+            for cases, c_, fn, plain_fn, err in (
+                    (stat_cases, ops.stat_cost(rows, d), lambda: ops.row_stat(x),
+                     lambda: row_stat_ref(x), e_stat),
+                    (fwd_cases, ops.ext_cost(rows, d), lambda: ops.rmsnorm_ext(x, w, ss, width, eps),
+                     lambda: rmsnorm_ext_ref(x, w, ss, width, eps), e_fwd),
+                    (bwd_cases, ops.ext_cost(rows, d, backward=True),
+                     lambda: ops.rmsnorm_ext_bwd(dy, x, w, ss, c, width, eps),
+                     lambda: rmsnorm_ext_bwd_ref(dy, x, w, ss, c, width, eps), e_bwd)):
+                bound, by = bound_ms(c_.bytes, c_.ops, c_.peak)
+                ms, plain = timer(fn), timer(plain_fn)
+                # F.rms_norm takes no statistic from outside
+                cases.append(dict(rows=rows, D=d, width=width, dtype="bfloat16", ms=ms,
+                                  plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                                  max_abs_err=err))
+            log(f"kernels: {name}: stat {stat_cases[-1]['ms']:.4f} ms (plain "
+                f"{stat_cases[-1]['plain_ms']:.4f}, bound {stat_cases[-1]['bound_ms']:.4f}), "
+                f"forward {fwd_cases[-1]['ms']:.4f} ms (plain {fwd_cases[-1]['plain_ms']:.4f}, "
+                f"bound {fwd_cases[-1]['bound_ms']:.4f}), backward {bwd_cases[-1]['ms']:.4f} ms "
+                f"(plain {bwd_cases[-1]['plain_ms']:.4f}, bound {bwd_cases[-1]['bound_ms']:.4f}); "
+                f"max|err| {e_stat:.2e} / {e_fwd:.2e} / {e_bwd:.2e} (rtol 2^-7)")
+    return stat_cases, fwd_cases, bwd_cases
 
 
 def rmsnorm_cases(torch, timer, gen, residual: bool):
@@ -1181,7 +1435,10 @@ def phase_kernels(torch, seed):
         "rmsnorm_bwd": rmsnorm_bwd_cases(torch, timer, gen),
         "ssd_scan": ssd_cases(torch, timer, gen),
         "ssd_scan_bwd": ssd_bwd_cases(torch, timer, gen),
+        "decode_attention_partial": decode_partial_cases(torch, timer, gen),
     }
+    results["rmsnorm_stat"], results["rmsnorm_ext"], results["rmsnorm_ext_bwd"] = (
+        rmsnorm_ext_cases(torch, timer, gen))
     del timer
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -1229,9 +1486,8 @@ def phase_serve(torch, seed, smi):
     n_norm = 2 * cfg.n_layers + 1
     # the model adds its residuals itself, as the JAX model does, so the
     # residual variant is held against its plain version in phase 3 only
-    expected = {"decode_attention": n_attn * steps, "rmsnorm": n_norm * steps,
-                "rmsnorm_residual": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-                "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    expected = dict({name: 0 for name, _, _ in counters()},
+                    decode_attention=n_attn * steps, rmsnorm=n_norm * steps)
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected} ({steps} steps)")
     if new.shape != (BATCH, NEW_TOKENS) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
@@ -1862,7 +2118,9 @@ def plain_versions_forbidden():
     names = [(dec_ops, "decode_attention_ref"), (fa_ops, "flash_attention_ref"),
              (fa_ops, "flash_attention_bwd_ref"), (norm_ops, "rmsnorm_ref"),
              (norm_ops, "rmsnorm_bwd_ref"), (norm_ops, "rmsnorm_residual_ref"),
-             (ssd_ops, "ssd_ref"), (ssd_ops, "ssd_bwd_ref")]
+             (ssd_ops, "ssd_ref"), (ssd_ops, "ssd_bwd_ref"),
+             (dec_ops, "decode_attention_partial_ref"), (norm_ops, "row_stat_ref"),
+             (norm_ops, "rmsnorm_ext_ref"), (norm_ops, "rmsnorm_ext_bwd_ref")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in names]
 
     def refuse(name):
@@ -3041,6 +3299,201 @@ def compression_check(torch, grads: dict, group) -> dict:
     return dict(leaves=len(grads), values=numel, s=times)
 
 
+def sharded_ssm_schedule(cfg) -> dict:
+    """Launches per train step of the sharded step of an SSM model: the
+    unsharded schedule with every gate norm (one a mamba layer, run again
+    in remat's recompute of the stacked groups) on B3a's external-statistic
+    mode, each with one row statistic, forward and backward."""
+    per = train_launch_schedule(cfg)
+    kinds = cfg.layer_kinds()
+    stacked = kinds[: (cfg.n_layers // len(cfg.pattern)) * len(cfg.pattern)]
+    fwd = kinds.count("mamba") + stacked.count("mamba")
+    bwd = kinds.count("mamba")
+    return dict(per, rmsnorm=per["rmsnorm"] - fwd, rmsnorm_bwd=per["rmsnorm_bwd"] - bwd,
+                rmsnorm_ext=fwd, rmsnorm_ext_bwd=bwd, rmsnorm_stat=fwd + bwd)
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dist_ssm_train(torch, seed, smi, ctx):
+    """DIST_SSM_MODEL cut to DIST_SSM_LAYERS through the sharded and the
+    unsharded step on phase 11's batch, DIST_STEPS steps each, launches
+    exact; the metrics within DIST_SSM_LOSS_TOL / DIST_SSM_GNORM_TOL; then
+    in fp32 at DIST_SSM_GRAD_LAYERS layers every gradient leaf within
+    DIST_SSM_GRAD_TOL of its max |g|.  Returns (the sharded steps'
+    launches, summary)."""
+    import dataclasses
+
+    from repro_torch.checkpoint import flatten_tree, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (batch_specs, distribute_tree, distribution, opt_specs,
+                                         param_specs)
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_adamw
+    from repro_torch.training import make_train_step
+
+    full = get_config(DIST_SSM_MODEL)
+    cfg = dataclasses.replace(full, n_layers=DIST_SSM_LAYERS)
+    api = build_model(cfg, device=DEVICE)
+    params = api.init(seed=seed)
+    n_params = sum(t.numel() for _, t in flatten_tree(params))
+    batch = token_batch(torch, cfg, seed, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    kw = dict(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+              microbatches=1, remat=True)
+    per_ref, per_sharded = train_launch_schedule(cfg), sharded_ssm_schedule(cfg)
+    ref_p = tree_map(lambda t: t.detach().clone(), params)
+    ref_step = make_train_step(api, **kw)
+    ref_p, ref_o, ref_hist, ref_s, _, _, ref_peak = dist_steps(
+        torch, ref_step, ref_p, init_adamw(ref_p), batch, "ssm unsharded", per_ref)
+    del ref_p, ref_o
+    opt = init_adamw(params)
+    p_specs = param_specs(params, cfg, ctx)
+    opt = distribute_tree(opt, opt_specs(opt, p_specs, cfg, ctx), ctx)
+    params = distribute_tree(params, p_specs, ctx)
+    step = make_train_step(api, ctx=ctx, **kw)
+    params, opt, hist, step_s, launches, _, peak = dist_steps(
+        torch, step, params, opt, batch, "ssm sharded", per_sharded)
+    del params, opt
+    expected = {k: DIST_STEPS * v for k, v in per_sharded.items()}
+    if launches != expected:
+        raise AssertionError(f"dist-train ssm: launches {launches} != {expected}")
+    worst = {"loss": 0.0, "ce": 0.0, "grad_norm": 0.0}
+    for i, (h, r) in enumerate(zip(hist, ref_hist)):
+        if h["lr"] != r["lr"] or not all(math.isfinite(v) for v in h.values()):
+            raise AssertionError(f"dist-train ssm: step {i} metrics {h} vs unsharded {r}")
+        for key in worst:
+            worst[key] = max(worst[key], rel(h[key], r[key]))
+    if max(worst["loss"], worst["ce"]) > DIST_SSM_LOSS_TOL or \
+            worst["grad_norm"] > DIST_SSM_GNORM_TOL:
+        raise AssertionError(f"dist-train ssm: sharded metrics {hist} vs unsharded {ref_hist}: "
+                             f"relative differences {worst}")
+    bitwise = all(h == r for h, r in zip(hist, ref_hist))
+
+    # fp32 gradients of one loss at the same weights, sharded and unsharded
+    small = dataclasses.replace(full, n_layers=DIST_SSM_GRAD_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    sapi = build_model(small, device=DEVICE)
+    gp = sapi.init(seed=seed)
+    gbatch = {k: v[:1, :DIST_SSM_GRAD_SEQ].contiguous() for k, v in batch.items()}
+    _, ref_g = loss_grads(torch, sapi, gp, gbatch, True)
+    ref_g = dict(zip([p for p, _ in flatten_tree(gp)], ref_g))
+    sp = distribute_tree(gp, param_specs(gp, small, ctx), ctx)
+    spec = batch_specs({k: (tuple(x.shape), x.dtype) for k, x in gbatch.items()}, ctx)
+    leaves = flatten_tree(sp)
+    tensors = [t.requires_grad_(True) for _, t in leaves]
+    with distribution(ctx):
+        loss, _ = sapi.loss_fn(sp, distribute_tree(gbatch, spec, ctx), remat=True)
+        grads = torch.autograd.grad(loss, tensors)
+    grad_err = 0.0
+    for (path, _), g in zip(leaves, grads):
+        r = ref_g[path].float()
+        e = (g.full_tensor().float() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+        if e > DIST_SSM_GRAD_TOL:
+            raise AssertionError(f"dist-train ssm: fp32 gradient {path} differs from the "
+                                 f"unsharded one by {e:.3e} of its max")
+        grad_err = max(grad_err, e)
+    del sp, gp, grads, ref_g
+    s_sh = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    s_un = statistics.median(ref_s[1:]) if len(ref_s) > 1 else ref_s[0]
+    log(f"dist-train ssm: {cfg.name} ({cfg.n_layers} of its {full.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B params), {DIST_STEPS} steps of "
+        f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens: sharded launches {launches} ("
+        f"{per_sharded} a step: every gate norm on the external-statistic mode); loss "
+        f"{[h['loss'] for h in hist]} vs unsharded {[h['loss'] for h in ref_hist]}, largest "
+        f"relative differences {worst} (tol {DIST_SSM_LOSS_TOL} / {DIST_SSM_GNORM_TOL}; bit "
+        f"for bit: {bitwise}); fp32 gradients at {DIST_SSM_GRAD_LAYERS} layers within "
+        f"{grad_err:.2e} of each leaf's max (tol {DIST_SSM_GRAD_TOL}); sharded {s_sh:.3f} s/step, "
+        f"{peak:.2f} GiB, unsharded {s_un:.3f} s/step, {ref_peak:.2f} GiB on {smi}")
+    return launches, dict(layers=cfg.n_layers, params=n_params, history=hist,
+                          unsharded_history=ref_hist, metric_rel_diff=worst, bitwise=bitwise,
+                          fp32_grad_rel_err=grad_err, s_per_step=s_sh, unsharded_s_per_step=s_un,
+                          peak_gib=peak, unsharded_peak_gib=ref_peak)
+
+
+def dist_decode(torch, seed, smi, ctx):
+    """DIST_DECODE_MODEL cut to DIST_DECODE_LAYERS decodes phase 4's prompts
+    and new tokens (past the ring's wrap) unsharded, then sharded on the
+    mesh (params and caches as DTensors), every plain version refused and
+    the launches exact; the generated tokens must be equal and the logits
+    at CHECK_POSITIONS within phase 4's gates.  Returns (the sharded run's
+    launches, summary)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (batch_specs, cache_specs, distribute_tree, distribution,
+                                         param_specs)
+    from repro_torch.models import build_model
+
+    full = get_config(DIST_DECODE_MODEL)
+    cfg = dataclasses.replace(full, n_layers=DIST_DECODE_LAYERS)
+    api = build_model(cfg, device=DEVICE)
+    params = api.init(seed=seed)
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT_LEN))).to(DEVICE)
+    steps = PROMPT_LEN + NEW_TOKENS  # the last generated token is decoded too (CHECK_POSITIONS)
+    per_step = path_launches(cfg, "step")
+    sharded_step = dict(per_step, decode_attention=0,
+                        decode_attention_partial=per_step["decode_attention"])
+    t_spec = batch_specs({"tokens": ((BATCH, 1), torch.int64)}, ctx)
+
+    def run(p, cache, sharded: bool):
+        tokens, logits, times = [], {}, []
+        cur = None
+        reset_counts()
+        with torch.no_grad(), plain_versions_forbidden(), distribution(ctx if sharded else None):
+            for i in range(steps):
+                tok = prompts[:, i:i + 1] if i < PROMPT_LEN else cur
+                if sharded:
+                    tok = distribute_tree({"tokens": tok}, t_spec, ctx)["tokens"]
+                before = read_counts()
+                sync(torch)
+                t0 = time.perf_counter()
+                lg, cache = api.decode_step(p, cache, tok, i)
+                lg = (lg.full_tensor() if sharded else lg)[:, 0]
+                cur = lg.argmax(-1)[:, None]
+                sync(torch)
+                times.append(time.perf_counter() - t0)
+                check_launches(before, sharded_step if sharded else per_step,
+                               f"dist-decode {'sharded' if sharded else 'unsharded'} step {i}")
+                if i in CHECK_POSITIONS:
+                    logits[i] = lg.float()
+                if i >= PROMPT_LEN - 1:
+                    tokens.append(cur)
+        return torch.cat(tokens, 1), logits, times, read_counts()
+
+    ref_tok, ref_lg, ref_t, _ = run(params, api.init_cache(BATCH, MAX_LEN), False)
+    cache = api.init_cache(BATCH, MAX_LEN)
+    cache = distribute_tree(cache, cache_specs(cache, cfg, ctx), ctx)
+    sp = distribute_tree(params, param_specs(params, cfg, ctx), ctx)
+    tok, lg, t_sh, launches = run(sp, cache, True)
+    del sp, cache, params
+    if not torch.equal(tok, ref_tok):
+        raise AssertionError(f"dist-decode: sharded tokens {tok.tolist()} != unsharded "
+                             f"{ref_tok.tolist()}")
+    dec = torch.stack([lg[p] for p in CHECK_POSITIONS], 1)
+    ref = torch.stack([ref_lg[p] for p in CHECK_POSITIONS], 1)
+    scale = max(1.0, ref.abs().max().item())
+    err = (dec - ref).abs()
+    worst, mean = err.max().item() / scale, err.mean().item() / scale
+    if not bool(dec.isfinite().all()) or worst > LOGIT_TOL or mean > LOGIT_MEAN_TOL:
+        raise AssertionError(f"dist-decode: sharded logits {worst:.3e} (mean {mean:.3e}) from "
+                             f"the unsharded ones")
+    ms_sh, ms_un = (statistics.median(t) * 1e3 for t in (t_sh, ref_t))
+    log(f"dist-decode: {cfg.name} ({cfg.n_layers} of its {full.n_layers} layers, every width) "
+        f"sharded on {dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.shape))}: {steps} steps at "
+        f"batch {BATCH} past the {cfg.sliding_window}-slot ring's wrap, {NEW_TOKENS + 1} greedy "
+        f"tokens equal to the unsharded decode's; logits at {CHECK_POSITIONS} within "
+        f"{worst:.2e} (mean {mean:.2e}) of max(1, |ref|) (bit for bit: {worst == 0}); launches "
+        f"{launches} ({sharded_step} a step: B2's partial mode and the fold on every attention "
+        f"layer); {ms_sh:.3f} ms/step sharded, {ms_un:.3f} unsharded on {smi}")
+    return launches, dict(layers=cfg.n_layers, steps=steps, logit_max_err=worst,
+                          logit_mean_err=mean, ms_per_step=ms_sh, unsharded_ms_per_step=ms_un)
+
+
 def phase_dist_train(torch, seed, smi, profile: bool = False):
     """DIST_MODEL at every published width cut to DIST_LAYERS layers, its
     weights drawn on the card, through the sharded train step on a (data 1,
@@ -3155,12 +3608,18 @@ def phase_dist_train(torch, seed, smi, profile: bool = False):
         del grads
         comp = compression_check(torch, local, mesh.get_group("data"))
         del local, params, opt
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        ssm_launches, ssm = dist_ssm_train(torch, seed, smi, ctx)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        decode_launches, decode = dist_decode(torch, seed, smi, ctx)
     finally:
         dist.destroy_process_group()
-    return launches, dict(layers=cfg.n_layers, params=n_params, history=hist, step_s=step_s,
-                          s_per_step=s_sh, peak_gib=peak, unsharded_s_per_step=s_un,
-                          unsharded_peak_gib=ref_peak, ep_exchanges=exchanges, leaves_equal=equal,
-                          compression=comp)
+    return launches, ssm_launches, decode_launches, dict(
+        layers=cfg.n_layers, params=n_params, history=hist, step_s=step_s, s_per_step=s_sh,
+        peak_gib=peak, unsharded_s_per_step=s_un, unsharded_peak_gib=ref_peak,
+        ep_exchanges=exchanges, leaves_equal=equal, compression=comp, ssm=ssm, decode=decode)
 
 
 # ------------------------------------------------------------ phase 15
@@ -3179,10 +3638,9 @@ def dryrun_cells(measured: dict) -> list:
             + [("dense-train", dense, TRAIN_BATCH, TRAIN_SEQ, measured["dense-train"])])
 
 
-def start_production_cell(tmp: Path):
-    """The dry run of DRYRUN_CELL as a user starts it, in a process that sees
+def start_production_cell(tmp: Path, arch: str, shape: str):
+    """The dry run of one cell as a user starts it, in a process that sees
     no card; its records go under ``tmp``."""
-    arch, shape = DRYRUN_CELL
     path = [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(path))
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
@@ -3191,12 +3649,11 @@ def start_production_cell(tmp: Path):
                             stderr=subprocess.STDOUT, text=True), time.perf_counter()
 
 
-def finish_production_cell(proc, t0: float, tmp: Path) -> dict:
-    """The production cell's record: it must be OK within DRYRUN_TIMEOUT_S,
+def finish_production_cell(proc, t0: float, tmp: Path, arch: str, shape: str) -> dict:
+    """A production cell's record: it must be OK within DRYRUN_TIMEOUT_S,
     its peak under the card's memory."""
     from repro_torch.launch import roofline
 
-    arch, shape = DRYRUN_CELL
     try:
         out, _ = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
@@ -3211,91 +3668,106 @@ def finish_production_cell(proc, t0: float, tmp: Path) -> dict:
     terms = roofline.derive_terms(cell)
     if cell["status"] != "OK" or not cell["memory"]["fits_80GB"]:
         raise AssertionError(f"dryrun: {arch} x {shape} on {cell['mesh']}: {cell}")
+    kernels = {k: v["launches"] for k, v in cell["op_analysis"]["kernels"].items()}
     log(f"dryrun: {arch} x {shape} on the fake {cell['mesh']} mesh ({cell['n_devices']} ranks), "
-        f"no card visible: OK in {wall:.1f} s; {cell['memory']['peak_per_device'] / 2**30:.2f} "
+        f"no card visible: OK in {wall:.1f} s, launches a card {kernels}; "
+        f"{cell['memory']['peak_per_device'] / 2**30:.2f} "
         f"GiB a card, modelled step {terms['step_s']:.4f} s ({terms['dominant']}-bound: compute "
         f"{terms['compute_s']:.4f}, memory {terms['memory_s']:.4f}, collective "
         f"{terms['collective_s']:.4f} s), useful {terms['useful_ratio']:.3f}")
     return dict(cell=f"{arch} x {shape}", mesh=cell["mesh"], wall_s=wall,
-                peak_per_device=cell["memory"]["peak_per_device"],
-                kernels={k: v["launches"] for k, v in cell["op_analysis"]["kernels"].items()},
+                peak_per_device=cell["memory"]["peak_per_device"], kernels=kernels,
                 terms={k: terms[k] for k in ("compute_s", "memory_s", "collective_s", "step_s",
                                              "dominant", "useful_ratio")})
 
 
-def phase_dryrun(torch, seed, smi, measured: dict):
+@contextlib.contextmanager
+def production_cells():
+    """DRYRUN_CELLS started at once, each as a user runs it in a process that
+    sees no card, their records in a temporary directory: yields (the
+    processes with their cells, the directory); kills what still runs on
+    the way out.  They need no card and run beside phases 14 and 15."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(start_production_cell(Path(tmp), arch, shape), arch, shape)
+                 for arch, shape in DRYRUN_CELLS]
+        try:
+            yield procs, Path(tmp)
+        finally:
+            for (proc, _), _, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+
+def phase_dryrun(torch, seed, smi, measured: dict, cells):
     """The launch layer against the card: the trained cells' steps run
     unsharded on meta tensors under the op analyser, at their phases'
     shapes, must launch exactly the kernels ``train_launch_schedule`` says
     and predict their phases' measured peaks within DRYRUN_PEAK_TOL; phase
     5's step run once more on the card under the analyser must count what
-    its meta run counts, exactly; and DRYRUN_CELL, run as a user runs it on
-    the fake production mesh in a process that sees no card, must be OK."""
-    import tempfile
-
+    its meta run counts, exactly; and DRYRUN_CELLS (``cells``, from
+    :func:`production_cells`), each run as a user runs it on the fake
+    production mesh in a process that sees no card, must be OK."""
     from repro_torch.launch.dryrun import train_step_analysis
     from repro_torch.models import build_model
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        proc, t_cell = start_production_cell(Path(tmp))
-        try:
-            for tag, cfg, b, seq, summary in dryrun_cells(measured):
-                shapes = {k: ((b, seq), torch.int32) for k in ("tokens", "labels")}
-                t0 = time.perf_counter()
-                meta = train_step_analysis(build_model(cfg, device="meta"), shapes,
-                                           **train_step_kwargs())
-                meta_s = time.perf_counter() - t0
-                want = train_launch_schedule(cfg)
-                got = {k: meta["kernels"].get(k, {}).get("launches", 0) for k in want}
-                if got != want:
-                    raise AssertionError(f"dryrun {tag}: meta launches {got} != {want}")
-                measured_peak = summary["peak_gib"] * 2**30
-                ratio = meta["peak_bytes"] / measured_peak if measured_peak else float("nan")
-                if DEVICE == "cuda" and not abs(ratio - 1) <= DRYRUN_PEAK_TOL:
-                    raise AssertionError(f"dryrun {tag}: predicted peak {meta['peak_bytes']} B is "
-                                         f"{ratio:.4f} x the measured {measured_peak:.0f} B")
-                # the roofline of an unsharded step: its compute or its memory term
-                model_s = max(meta["compute_seconds"], meta["hbm_bytes"] / HBM_BYTES_PER_S)
-                log(f"dryrun {tag}: meta step in {meta_s:.1f} s: launches {got} (the schedule's); "
-                    f"peak {meta['peak_bytes'] / 2**30:.3f} GiB predicted, "
-                    f"{summary['peak_gib']:.3f} GiB measured in its phase on {smi} (ratio "
-                    f"{ratio:.4f}); modelled step {model_s:.4f} s (compute "
-                    f"{meta['compute_seconds']:.4f}, memory {meta['hbm_bytes'] / HBM_BYTES_PER_S:.4f}) "
-                    f"beside {summary['s_per_step']:.4f} s/step measured "
-                    f"({model_s / summary['s_per_step']:.3f} of it)")
-                out[tag] = dict(launches=got, peak_predicted=meta["peak_bytes"],
-                                peak_measured=measured_peak, peak_ratio=ratio,
-                                flops=meta["flops"], hbm_bytes=meta["hbm_bytes"],
-                                compute_s=meta["compute_seconds"], model_step_s=model_s,
-                                measured_step_s=summary["s_per_step"])
-                if tag != "train":
-                    continue
-                # the same step once more on the card, counted by the same analyser
-                api = build_model(cfg, device=DEVICE)
-                params = api.init(seed=seed)
-                card = train_step_analysis(api, shapes, params=params, **train_step_kwargs())
-                del api, params
-                if DEVICE == "cuda":
-                    torch.cuda.empty_cache()
-                pairs = {"flops": (card["flops"], meta["flops"]),
-                         "hbm_bytes": (card["hbm_bytes"], meta["hbm_bytes"]),
-                         "launches": ({k: v["launches"] for k, v in card["kernels"].items()},
-                                      {k: v["launches"] for k, v in meta["kernels"].items()})}
-                same = all(a == m for a, m in pairs.values())
-                if DEVICE == "cuda" and not same:
-                    raise AssertionError(f"dryrun {tag}: the card step counted {pairs} (card, meta)")
-                log(f"dryrun {tag}: the step on the card under the analyser counts "
-                    f"{card['flops']:.6g} FLOPs, {card['hbm_bytes']:.6g} bytes, launches "
-                    f"{pairs['launches'][0]}: "
-                    + ("the meta run's, exactly" if same else "not the meta run's (the plain "
-                       "versions run on the CPU)"))
-                out[tag]["card_equal"] = same
-            out["production"] = finish_production_cell(proc, t_cell, Path(tmp))
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+    procs, tmp = cells
+    for tag, cfg, b, seq, summary in dryrun_cells(measured):
+        shapes = {k: ((b, seq), torch.int32) for k in ("tokens", "labels")}
+        t0 = time.perf_counter()
+        meta = train_step_analysis(build_model(cfg, device="meta"), shapes,
+                                   **train_step_kwargs())
+        meta_s = time.perf_counter() - t0
+        want = train_launch_schedule(cfg)
+        got = {k: meta["kernels"].get(k, {}).get("launches", 0) for k in want}
+        if got != want:
+            raise AssertionError(f"dryrun {tag}: meta launches {got} != {want}")
+        measured_peak = summary["peak_gib"] * 2**30
+        ratio = meta["peak_bytes"] / measured_peak if measured_peak else float("nan")
+        if DEVICE == "cuda" and not abs(ratio - 1) <= DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dryrun {tag}: predicted peak {meta['peak_bytes']} B is "
+                                 f"{ratio:.4f} x the measured {measured_peak:.0f} B")
+        # the roofline of an unsharded step: its compute or its memory term
+        model_s = max(meta["compute_seconds"], meta["hbm_bytes"] / HBM_BYTES_PER_S)
+        log(f"dryrun {tag}: meta step in {meta_s:.1f} s: launches {got} (the schedule's); "
+            f"peak {meta['peak_bytes'] / 2**30:.3f} GiB predicted, "
+            f"{summary['peak_gib']:.3f} GiB measured in its phase on {smi} (ratio "
+            f"{ratio:.4f}); modelled step {model_s:.4f} s (compute "
+            f"{meta['compute_seconds']:.4f}, memory {meta['hbm_bytes'] / HBM_BYTES_PER_S:.4f}) "
+            f"beside {summary['s_per_step']:.4f} s/step measured "
+            f"({model_s / summary['s_per_step']:.3f} of it)")
+        out[tag] = dict(launches=got, peak_predicted=meta["peak_bytes"],
+                        peak_measured=measured_peak, peak_ratio=ratio,
+                        flops=meta["flops"], hbm_bytes=meta["hbm_bytes"],
+                        compute_s=meta["compute_seconds"], model_step_s=model_s,
+                        measured_step_s=summary["s_per_step"])
+        if tag != "train":
+            continue
+        # the same step once more on the card, counted by the same analyser
+        api = build_model(cfg, device=DEVICE)
+        params = api.init(seed=seed)
+        card = train_step_analysis(api, shapes, params=params, **train_step_kwargs())
+        del api, params
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        pairs = {"flops": (card["flops"], meta["flops"]),
+                 "hbm_bytes": (card["hbm_bytes"], meta["hbm_bytes"]),
+                 "launches": ({k: v["launches"] for k, v in card["kernels"].items()},
+                              {k: v["launches"] for k, v in meta["kernels"].items()})}
+        same = all(a == m for a, m in pairs.values())
+        if DEVICE == "cuda" and not same:
+            raise AssertionError(f"dryrun {tag}: the card step counted {pairs} (card, meta)")
+        log(f"dryrun {tag}: the step on the card under the analyser counts "
+            f"{card['flops']:.6g} FLOPs, {card['hbm_bytes']:.6g} bytes, launches "
+            f"{pairs['launches'][0]}: "
+            + ("the meta run's, exactly" if same else "not the meta run's (the plain "
+               "versions run on the CPU)"))
+        out[tag]["card_equal"] = same
+    out["production"] = [finish_production_cell(proc, t_cell, tmp, arch, shape)
+                         for (proc, t_cell), arch, shape in procs]
     return out
 
 
@@ -3369,16 +3841,19 @@ def main() -> int:
     dense_train_launches, dense_train = phase_dense_train(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"dense-train: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dist_launches, dist_train = phase_dist_train(torch, args.seed, smi, args.profile)
-    torch.cuda.empty_cache()
-    log(f"dist-train: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dryrun = phase_dryrun(torch, args.seed, smi, {
-        "train": train, "moe-train": moe_train, "ssm-train": ssm_train,
-        "dense-train": dense_train})
-    torch.cuda.empty_cache()
-    log(f"dryrun: {time.perf_counter() - t0:.1f} s")
+    # phase 15's production cells need no card: they run beside phases 14-15
+    with production_cells() as cells:
+        t0 = time.perf_counter()
+        dist_launches, dist_ssm_launches, dist_decode_launches, dist_train = phase_dist_train(
+            torch, args.seed, smi, args.profile)
+        torch.cuda.empty_cache()
+        log(f"dist-train: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dryrun = phase_dryrun(torch, args.seed, smi, {
+            "train": train, "moe-train": moe_train, "ssm-train": ssm_train,
+            "dense-train": dense_train}, cells)
+        torch.cuda.empty_cache()
+        log(f"dryrun: {time.perf_counter() - t0:.1f} s")
 
     # name: (route, source, what it replaces, the path whose run it counts)
     meta = {
@@ -3397,12 +3872,23 @@ def main() -> int:
         "ssd_scan": ("cuda", SSD_SRC, "src/repro/kernels/ssd_scan/ssd_scan.py:105", "ssm"),
         # replaces the autodiff of the jnp reference ssd_chunked
         "ssd_scan_bwd": ("cuda", SSD_BWD_SRC, "src/repro/models/mamba2.py:93", "ssm-train"),
+        # the modes a sequence-split cache and a row split over ranks take
+        # (the Pallas kernels' work under GSPMD's partitioning)
+        "decode_attention_partial": (
+            "cuda", DECODE_SRC, "src/repro/kernels/decode_attention/decode_attention.py:125",
+            "dist-decode"),
+        "rmsnorm_stat": ("triton", RMSNORM_SRC, "src/repro/kernels/rmsnorm/rmsnorm.py:51",
+                         "dist-ssm"),
+        "rmsnorm_ext": ("triton", RMSNORM_SRC, "src/repro/kernels/rmsnorm/rmsnorm.py:51",
+                        "dist-ssm"),
+        "rmsnorm_ext_bwd": ("triton", RMSNORM_SRC, "src/repro/models/layers.py:31", "dist-ssm"),
     }
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
                "pilot": pilot_launches, "moe": moe_launches_all, "moe-train": moe_train_launches,
                "whisper": whisper_launches, "ssm-train": ssm_train_launches,
                "dense-serve": dense_launches, "dense-train": dense_train_launches,
-               "dist-train": dist_launches}
+               "dist-train": dist_launches, "dist-ssm": dist_ssm_launches,
+               "dist-decode": dist_decode_launches}
     kernels = []
     for name, cases in results.items():
         route, source, replaces, path = meta[name]

@@ -12,6 +12,13 @@
 // A slot j takes part iff 0 <= pos_k[j] <= pos and pos - pos_k[j] < window.
 // A row with no such slot gives 0.
 //
+// Partial mode (`lse` given): the cache is one rank's range of the slots of
+// a cache whose sequence dim is split over ranks.  The output is then fp32,
+// normalised over this range's kept slots, and each row's natural-log
+// log-sum-exp of its scaled scores goes to lse[B, Hq] (-inf for a row with
+// no kept slot here, whose output is 0), so that the caller can fold the
+// ranks' partials: out = sum_r exp(lse_r - lse) out_r.
+//
 // What bounds it: bytes, and at decode sizes the latency of reaching them.
 // One query row per (batch, kv head) against Sk cache rows does 4*G*D flops
 // per 4*D bytes of K and V (bf16): about G flops per byte, far below the ~295
@@ -76,6 +83,7 @@ constexpr int kPosCap = 1024;           // slot positions held in shared memory 
 constexpr int kStageBudget = 64 * 1024; // bytes of K and V tiles in flight (at least two tiles)
 constexpr int kMaxSplit = 16;           // blocks of a cluster (non-portable above 8)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -148,10 +156,11 @@ struct Params {
   const void* v;
   const int* pos_q;
   const int* pos_k;
-  void* out;
+  void* out;    // T, or float in the partial mode
+  float* lse;   // the partial mode's [B, Hq] log-sum-exp; null otherwise
   int n_kv_heads, seq_k, split_len, window;
   float scale_log2;  // softmax scale x log2(e): the softmax runs in base 2
-  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, pk_sb, o_sb, o_sh;
+  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, pk_sb, o_sb, o_sh, l_sb, l_sh;
 };
 
 // Shared memory of one block, in bytes from the start.
@@ -449,18 +458,26 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
       l += s_peer_l[s * G + g] * w;
     }
     s_ltot[g] = l;
+    if (p.lse != nullptr && rank == 0)  // natural log: (mx + log2 l) ln 2
+      p.lse[b * p.l_sb + static_cast<long long>(h * G + g) * p.l_sh] =
+          l > 0.f ? (mx + log2f(l)) * kLn2 : -INFINITY;
   }
   __syncthreads();
   const int per = (G * D + n - 1) / n;
   const int lo = rank * per;
   const int hi = min(lo + per, G * D);
-  T* out = static_cast<T*>(p.out) + b * p.o_sb + static_cast<long long>(h) * G * p.o_sh;
+  const long long o0 = b * p.o_sb + static_cast<long long>(h) * G * p.o_sh;
   for (int i = lo + tid; i < hi; i += kThreads) {
     const int g = i / D;
     float a = 0.f;
     for (int s = 0; s < n; ++s) a += cluster.map_shared_rank(s_part, s)[i] * s_w[s * G + g];
     const float l = s_ltot[g];
-    out[g * p.o_sh + i % D] = from_float<T>(l > 0.f ? a / l : 0.f);
+    const float o = l > 0.f ? a / l : 0.f;
+    const long long at = o0 + g * p.o_sh + i % D;
+    if (p.lse != nullptr)
+      static_cast<float*>(p.out)[at] = o;
+    else
+      static_cast<T*>(p.out)[at] = from_float<T>(o);
   }
   cluster.sync();  // no block leaves while a peer still reads its shared memory
 }
@@ -552,16 +569,17 @@ int dispatch(const Request& r, int dtype, int head_dim, int group) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  One launch of
 // grid (n_split, batch * n_kv_heads) in clusters of n_split blocks, each
-// block folding split_len slots.  Returns cudaGetLastError() after the
-// launch, or -1 for a shape this build has no instance for (the wrapper
-// checks that first).
+// block folding split_len slots.  A non-null lse [B, Hq] (fp32, strides
+// l_sb, l_sh) asks for the partial mode: out is then fp32.  Returns
+// cudaGetLastError() after the launch, or -1 for a shape this build has no
+// instance for (the wrapper checks that first).
 extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v, const void* pos_q,
-    const void* pos_k, void* out, int batch, int n_kv_heads, int group, int head_dim,
-    int seq_k, int split_len, int n_split, int window, float scale, long long q_sb,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long pk_sb, long long o_sb, long long o_sh,
-    void* stream) {
+    const void* pos_k, void* out, void* lse, int batch, int n_kv_heads, int group,
+    int head_dim, int seq_k, int split_len, int n_split, int window, float scale,
+    long long q_sb, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long pk_sb, long long o_sb,
+    long long o_sh, long long l_sb, long long l_sh, void* stream) {
   Request r = {};
   r.p.q = q;
   r.p.k = k;
@@ -569,6 +587,7 @@ extern "C" int decode_attention_launch(
   r.p.pos_q = static_cast<const int*>(pos_q);
   r.p.pos_k = static_cast<const int*>(pos_k);
   r.p.out = out;
+  r.p.lse = static_cast<float*>(lse);
   r.p.n_kv_heads = n_kv_heads;
   r.p.seq_k = seq_k;
   r.p.split_len = split_len;
@@ -585,6 +604,8 @@ extern "C" int decode_attention_launch(
   r.p.pk_sb = pk_sb;
   r.p.o_sb = o_sb;
   r.p.o_sh = o_sh;
+  r.p.l_sb = l_sb;
+  r.p.l_sh = l_sh;
   r.batch = batch;
   r.n_split = n_split;
   r.stream = static_cast<cudaStream_t>(stream);

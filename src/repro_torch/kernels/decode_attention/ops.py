@@ -7,6 +7,12 @@ returns an empty output (the dry run).  :func:`cost` is one launch's work.
 does not count).  One call is one launch
 of the kernel, clustered as :func:`split_plan` says, and allocates only the
 output.
+
+:func:`decode_attention_partial` is the kernel's partial mode, for a cache
+whose sequence dim is split over ranks: over this rank's slots it returns
+the fp32 output and each row's log-sum-exp (-inf where no slot of the range
+is kept), which :func:`fold_partials` folds over the ranks.  Its launches
+count in ``decode_attention.partial_launches``.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import KernelCost, build, count_launch, launch
-from .ref import decode_attention_ref
+from .ref import decode_attention_partial_ref, decode_attention_ref
 
 #: most blocks that share one (batch, kv head): a thread-block cluster
 #: (above 8 a non-portable size, which Hopper allows up to 16)
@@ -58,7 +64,7 @@ def _kernel_fns():
         lib = build.load("decode_attention")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         launch, occ = lib.decode_attention_launch, lib.decode_attention_occupancy
-        launch.argtypes = [i32] + [ptr] * 6 + [i32] * 8 + [ctypes.c_float] + [i64] * 11 + [ptr]
+        launch.argtypes = [i32] + [ptr] * 7 + [i32] * 8 + [ctypes.c_float] + [i64] * 13 + [ptr]
         occ.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
         launch.restype = occ.restype = i32
         _fns = (launch, occ)
@@ -99,27 +105,30 @@ def _check_aligned(name: str, t: torch.Tensor, dims, align: int) -> None:
         )
 
 
-def cost(b: int, sk: int, hq: int, hkv: int, d: int, n_valid: int, item: int = 2) -> KernelCost:
+def cost(b: int, sk: int, hq: int, hkv: int, d: int, n_valid: int, item: int = 2,
+         partial: bool = False) -> KernelCost:
     """One launch's work over a cache of ``sk`` slots of which ``n_valid``
     (batch, slot) pairs are attended: those K and V rows, q in and out, the
     slot positions (one row, broadcast) and the query positions; 4 x
     n_valid x Hq x D products, taken at the bf16 tensor-core peak (the
-    kernel multiplies on the CUDA cores in fp32, its own ceiling)."""
+    kernel multiplies on the CUDA cores in fp32, its own ceiling).  The
+    partial mode writes its output in fp32 and one fp32 log-sum-exp a row."""
     from ...launch.roofline import BF16_FLOPS
 
-    n_bytes = 2 * n_valid * hkv * d * item + 2 * b * hq * d * item + sk * 4 + b * 4
+    out_bytes = b * hq * (d * 4 + 4) if partial else b * hq * d * item
+    n_bytes = 2 * n_valid * hkv * d * item + b * hq * d * item + out_bytes + sk * 4 + b * 4
     flops = 4 * n_valid * hq * d
     return KernelCost(n_bytes, flops, flops, BF16_FLOPS)
 
 
-def _launch_cost(q3, k_cache, window) -> KernelCost:
+def _launch_cost(q3, k_cache, window, partial=False) -> KernelCost:
     """The cost an observer is given, from shapes alone (meta tensors hold
     no positions; on CUDA reading them would stall the stream): every slot
     of every row attended, within the window if there is one."""
     b, hq, d = q3.shape
     _, sk, hkv, _ = k_cache.shape
     n_valid = b * (min(sk, window) if window else sk)
-    return cost(b, sk, hq, hkv, d, n_valid, q3.element_size())
+    return cost(b, sk, hq, hkv, d, n_valid, q3.element_size(), partial)
 
 
 def _check(q3, k_cache, v_cache, positions_q, positions_k) -> None:
@@ -148,17 +157,21 @@ def _check(q3, k_cache, v_cache, positions_q, positions_k) -> None:
         raise ValueError("decode_attention: positions must be contiguous per row")
 
 
-def _launch(q3, k_cache, v_cache, positions_q, positions_k, window, sm_scale):
-    """The kernel on CUDA tensors; on meta tensors its checks and output only."""
+def _launch(q3, k_cache, v_cache, positions_q, positions_k, window, sm_scale,
+            partial: bool = False):
+    """The kernel on CUDA tensors (in the partial mode: (fp32 out, lse)); on
+    meta tensors its checks and outputs only."""
     b, hq, d = q3.shape
     _, sk, hkv, _ = k_cache.shape
     g = hq // hkv
     dev = q3.device
     _check(q3, k_cache, v_cache, positions_q, positions_k)
-    with launch("decode_attention", lambda: _launch_cost(q3, k_cache, window)):
-        out = torch.empty((b, hq, d), dtype=q3.dtype, device=dev)
+    name = "decode_attention_partial" if partial else "decode_attention"
+    with launch(name, lambda: _launch_cost(q3, k_cache, window, partial)):
+        out = torch.empty((b, hq, d), dtype=torch.float32 if partial else q3.dtype, device=dev)
+        lse = torch.empty((b, hq), dtype=torch.float32, device=dev) if partial else None
         if dev.type == "meta":
-            return out
+            return (out, lse) if partial else out
         # K and V rows go to shared memory as 16-byte cp.async copies
         _check_aligned("k_cache", k_cache, (0, 1, 2), 16)
         _check_aligned("v_cache", v_cache, (0, 1, 2), 16)
@@ -168,29 +181,22 @@ def _launch(q3, k_cache, v_cache, positions_q, positions_k, window, sm_scale):
             _DTYPE_CODES[q3.dtype],
             q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             positions_q.data_ptr(), positions_k.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if partial else None,
             b, hkv, g, d, sk, split_len, n_split, window or 0, sm_scale,
             q3.stride(0), q3.stride(1),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
             positions_k.stride(0), out.stride(0), out.stride(1),
+            lse.stride(0) if partial else 0, lse.stride(1) if partial else 0,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if rc != 0:
             raise RuntimeError(f"decode_attention kernel launch failed (cudaError {rc})")
-    count_launch(decode_attention)
-    return out
+    count_launch(decode_attention, "partial_launches" if partial else "launches")
+    return (out, lse) if partial else out
 
 
-def decode_attention(
-    q: torch.Tensor,  # [B, 1, Hq, D] (model layout, single step)
-    k_cache: torch.Tensor,  # [B, Sk, Hkv, D]
-    v_cache: torch.Tensor,  # [B, Sk, Hkv, D]
-    positions_q: torch.Tensor,  # [B] int32: the query's absolute position
-    positions_k: torch.Tensor,  # [B, Sk] int32: the position each slot holds
-    *,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """One-token GQA attention over a (ring) KV cache; returns [B, 1, Hq, D]."""
+def _check_args(q, k_cache, v_cache, positions_q, positions_k, window) -> None:
     b, one, hq, d = q.shape
     _, sk, hkv, dk = k_cache.shape
     if one != 1:
@@ -206,7 +212,63 @@ def decode_attention(
         raise ValueError("decode_attention: positions must be [B] and [B, Sk]")
     if window is not None and window <= 0:
         raise ValueError(f"decode_attention: window must be positive, got {window}")
-    sm_scale = d**-0.5
+
+
+def decode_attention_partial(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [B, Sk_local, Hkv, D]: this rank's slots
+    v_cache: torch.Tensor,
+    positions_q: torch.Tensor,  # [B] int32
+    positions_k: torch.Tensor,  # [B, Sk_local] int32: the positions those slots hold
+    *,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode over one rank's range of a split cache: (out [B, Hq,
+    D] fp32, normalised over the range's kept slots, 0 where none is kept;
+    lse [B, Hq] fp32, the natural log-sum-exp of the kept slots' scaled
+    scores, -inf where none is kept).  A range of any length >= 1 is taken
+    (one block a (batch, kv head) below MIN_SPLIT_LEN slots)."""
+    _check_args(q, k_cache, v_cache, positions_q, positions_k, window)
+    sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return decode_attention_partial_ref(
+            q[:, 0], k_cache, v_cache, positions_q, positions_k, window=window,
+            sm_scale=sm_scale)
+    if q.device.type in ("cuda", "meta"):
+        return _launch(q[:, 0], k_cache, v_cache, positions_q, positions_k, window, sm_scale,
+                       partial=True)
+    raise ValueError(f"decode_attention: no kernel for device {q.device}")
+
+
+def fold_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The ranks' partials folded in rank order in fp32: outs [R, B, Hq, D]
+    and lses [R, B, Hq] (dim 0 the ranks of the split, in the order of
+    their slot ranges) -> [B, Hq, D] = sum_r exp(lse_r - lse) out_r, lse
+    the rows' log-sum-exp over the ranks; a rank whose lse is -inf adds
+    nothing, and a row with no kept slot anywhere gives 0."""
+    top = lses.amax(dim=0)
+    base = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    out = torch.zeros(outs.shape[1:], dtype=torch.float32, device=outs.device)
+    total = torch.zeros(lses.shape[1:], dtype=torch.float32, device=lses.device)
+    for r in range(outs.shape[0]):
+        w = torch.exp(lses[r] - base)  # 0 where lse_r is -inf
+        total = total + w
+        out = out + w[..., None] * outs[r]
+    return torch.where(total[..., None] > 0, out / total.clamp_min(1e-30)[..., None], 0.0)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, Hq, D] (model layout, single step)
+    k_cache: torch.Tensor,  # [B, Sk, Hkv, D]
+    v_cache: torch.Tensor,  # [B, Sk, Hkv, D]
+    positions_q: torch.Tensor,  # [B] int32: the query's absolute position
+    positions_k: torch.Tensor,  # [B, Sk] int32: the position each slot holds
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One-token GQA attention over a (ring) KV cache; returns [B, 1, Hq, D]."""
+    _check_args(q, k_cache, v_cache, positions_q, positions_k, window)
+    sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         out = decode_attention_ref(
             q[:, 0], k_cache, v_cache, positions_q, positions_k,
@@ -220,3 +282,4 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+decode_attention.partial_launches = 0

@@ -5,11 +5,15 @@ The same function as ``csrc/decode_attention.cu``, in fp32: one query row per
 j takes part iff ``0 <= positions_k[b, j] <= positions_q[b]`` and, with a
 window, ``positions_q[b] - positions_k[b, j] < window``.  A row with no slot
 in the mask gives 0, as the kernel does.
+
+``decode_attention_partial_ref`` is the plain version of the kernel's partial
+mode (one rank's slot range of a split cache): the fp32 output over the
+range and each row's log-sum-exp, -inf where the range keeps no slot.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +47,45 @@ def decode_attention_ref(
     return o.reshape(b, hq, d).to(q.dtype)
 
 
+def _keep(positions_q, positions_k, window):
+    dpos = positions_q.long()[:, None] - positions_k.long()  # [B, Sk]
+    keep = (positions_k >= 0) & (dpos >= 0)
+    if window is not None:
+        keep &= dpos < window
+    return keep
+
+
+def decode_attention_partial_ref(
+    q: torch.Tensor,  # [B, Hq, D]
+    k: torch.Tensor,  # [B, Sk, Hkv, D]: one rank's slots
+    v: torch.Tensor,
+    positions_q: torch.Tensor,  # [B] int
+    positions_k: torch.Tensor,  # [B, Sk] int
+    *,
+    window: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Hq, D] fp32 over the kept slots of this range, 0 where none
+    is kept; lse [B, Hq] fp32 = log sum exp of the kept slots' scaled
+    scores, -inf where none is kept)."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = sm_scale if sm_scale is not None else d**-0.5
+    s = torch.einsum("bhgd,bkhd->bhgk", q.float().reshape(b, hkv, g, d), k.float()) * scale
+    keep = _keep(positions_q, positions_k, window)[:, None, None, :]
+    s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    base = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(keep, torch.exp(s - base), torch.zeros_like(s))
+    lsum = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    o = torch.where(lsum > 0, o / lsum.clamp_min(1e-30), torch.zeros_like(o))
+    lse = torch.where(lsum[..., 0] > 0, base[..., 0] + torch.log(lsum[..., 0]),
+                      torch.full_like(lsum[..., 0], float("-inf")))
+    return o.reshape(b, hq, d), lse.reshape(b, hq)
+
+
 def decode_attention_split_ref(
     q: torch.Tensor,  # [B, Hq, D]
     k: torch.Tensor,  # [B, Sk, Hkv, D]
@@ -55,24 +98,25 @@ def decode_attention_split_ref(
     window: Optional[int] = None,
     sm_scale: Optional[float] = None,
     tile: int = 32,
-) -> torch.Tensor:
+    partial: bool = False,
+):
     """The kernel's order of work in plain PyTorch, in fp32.  Split s (block
     s of a cluster) folds the slots [s*split_len, min((s+1)*split_len, Sk))
     tile by tile into an online-softmax partial (max m, sum l, acc) per query
     head, leaving a row's state as it is over a tile that holds none of its
     kept slots; then the partials are folded in split (cluster rank) order,
     each weighted by exp(m_s - max_s m_s).  A split with no kept slot gives
-    m = -inf and adds nothing; a row with none anywhere gives 0."""
+    m = -inf and adds nothing; a row with none anywhere gives 0.  With
+    ``partial`` it returns the partial mode's (fp32 out, lse): the folded
+    max and sum give lse = max + log(sum) (in the scaled scores' units),
+    -inf for a row with no kept slot."""
     b, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = sm_scale if sm_scale is not None else d**-0.5
     qf = q.float().reshape(b, hkv, g, d) * scale
     kf, vf = k.float(), v.float()
-    dpos = positions_q.long()[:, None] - positions_k.long()
-    keep = (positions_k >= 0) & (dpos >= 0)
-    if window is not None:
-        keep &= dpos < window
+    keep = _keep(positions_q, positions_k, window)
     ninf = torch.full((b, hkv, g), float("-inf"))
     parts = []
     for s in range(n_split):
@@ -98,4 +142,8 @@ def decode_attention_split_ref(
         out = out + acc * w[..., None]
         l_tot = l_tot + l * w
     out = torch.where(l_tot[..., None] > 0, out / l_tot.clamp_min(1e-30)[..., None], 0.0)
+    if partial:
+        lse = torch.where(l_tot > 0, base + torch.log(l_tot.clamp_min(1e-30)),
+                          torch.full_like(l_tot, float("-inf")))
+        return out.reshape(b, hq, d), lse.reshape(b, hq)
     return out.reshape(b, hq, d).to(q.dtype)

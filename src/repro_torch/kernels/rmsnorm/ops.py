@@ -9,6 +9,15 @@ The plain variant is differentiable: its backward is
 launches of the plain variant, ``rmsnorm.backward_launches`` its backward
 launches and ``rmsnorm.residual_launches`` those of the residual variant
 (the plain versions do not count).
+
+The external-statistic mode (:func:`rmsnorm_split`) normalizes rows whose
+columns are split over ranks, as GSPMD does for the Mamba2 gate norm: each
+rank's fp32 row partials (:func:`row_stat`, the ``rmsnorm_stat_kernel``)
+are summed over the ranks by the caller's ``reduce``, then
+:func:`rmsnorm_ext` (forward) and :func:`rmsnorm_ext_bwd` (backward) scale
+the local columns with those totals.  Their launches count in
+``rmsnorm.stat_launches``, ``rmsnorm.ext_launches`` and
+``rmsnorm.ext_backward_launches``.
 """
 
 from __future__ import annotations
@@ -18,7 +27,14 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .. import KernelCost, count_launch, launch
-from .ref import rmsnorm_bwd_ref, rmsnorm_ref, rmsnorm_residual_ref
+from .ref import (
+    rmsnorm_bwd_ref,
+    rmsnorm_ext_bwd_ref,
+    rmsnorm_ext_ref,
+    rmsnorm_ref,
+    rmsnorm_residual_ref,
+    row_stat_ref,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 16384
@@ -93,9 +109,40 @@ def cost(rows: int, d: int, item: int = 2, w_item: int = 2, residual: bool = Fal
     return KernelCost(n_bytes, ops, ops, FP32_FLOPS)
 
 
+def ext_cost(rows: int, d: int, item: int = 2, w_item: int = 2,
+             backward: bool = False) -> KernelCost:
+    """One launch of the external-statistic mode on ``rows`` local rows of
+    ``d`` columns.  Forward: x and the scale in, each row's fp32 sum of
+    squares in, the output out; 3 operations an element.  Backward: x and dy
+    in, dx out, the scale in and its gradient out, each row's two fp32
+    totals in; 8 operations an element."""
+    from ...launch.roofline import FP32_FLOPS
+
+    if backward:
+        n_bytes, ops = 3 * rows * d * item + 2 * d * w_item + 8 * rows, 8 * rows * d
+    else:
+        n_bytes, ops = 2 * rows * d * item + d * w_item + 4 * rows, 3 * rows * d
+    return KernelCost(n_bytes, ops, ops, FP32_FLOPS)
+
+
+def stat_cost(rows: int, d: int, item: int = 2, w_item: int = 2,
+              with_dy: bool = False) -> KernelCost:
+    """One launch of ``rmsnorm_stat_kernel``: x (and dy and the scale) in,
+    one fp32 value a row out; 2 operations an element (4 with dy)."""
+    from ...launch.roofline import FP32_FLOPS
+
+    n_bytes = (2 if with_dy else 1) * rows * d * item + (d * w_item if with_dy else 0) + 4 * rows
+    ops = (4 if with_dy else 2) * rows * d
+    return KernelCost(n_bytes, ops, ops, FP32_FLOPS)
+
+
+def _rows(x) -> int:
+    return x.numel() // max(x.shape[-1], 1)
+
+
 def _cost_of(x, w, residual=False, backward=False) -> KernelCost:
     d = x.shape[-1]
-    return cost(x.numel() // max(d, 1), d, x.element_size(), w.element_size(), residual, backward)
+    return cost(_rows(x), d, x.element_size(), w.element_size(), residual, backward)
 
 
 def _sms(device: torch.device) -> int:
@@ -121,15 +168,31 @@ def _check(x, w, residual):
         raise ValueError("rmsnorm: x, w and residual must be contiguous")
 
 
-def _launch(x, w, eps, residual):
-    """The forward kernel on CUDA tensors; on meta tensors its checks and
-    outputs only."""
+def _check_stat(x, t, name: str) -> None:
+    """A row statistic: fp32, contiguous, one value a row of x, on x's device."""
+    if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous() or \
+            t.numel() != _rows(x):
+        raise ValueError(f"rmsnorm: {name} must be a contiguous fp32 tensor of one value a row "
+                         f"of x on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch(x, w, eps, residual, ss=None, n=None):
+    """The forward kernel on CUDA tensors (with ``ss``: the
+    external-statistic mode over rows of ``n`` columns in all); on meta
+    tensors its checks and outputs only."""
     _check(x, w, residual)
     d = x.shape[-1]
     x2 = x.view(-1, d)
     rows = x2.shape[0]
-    name = "rmsnorm" if residual is None else "rmsnorm_residual"
-    with launch(name, lambda: _cost_of(x, w, residual is not None)):
+    ext = ss is not None
+    if ext:
+        _check_stat(x, ss, "ss")
+        name, cost_fn = "rmsnorm_ext", lambda: ext_cost(
+            rows, d, x.element_size(), w.element_size())
+    else:
+        name = "rmsnorm" if residual is None else "rmsnorm_residual"
+        cost_fn = lambda: _cost_of(x, w, residual is not None)  # noqa: E731
+    with launch(name, cost_fn):
         out = torch.empty_like(x2)
         res_out = torch.empty_like(x2) if residual is not None else out
         if rows and x.device.type == "cuda":
@@ -138,30 +201,93 @@ def _launch(x, w, eps, residual):
             r2 = residual.view(-1, d) if residual is not None else x2
             tile, block_a, block_b, warps = _fwd_launch(rows, d, _sms(x.device))
             kernel.rmsnorm_kernel[(-(-rows // tile),)](
-                x2, r2, w, out, res_out,
+                x2, r2, w, out, res_out, ss if ext else x2,
                 x2.stride(0), r2.stride(0), out.stride(0), res_out.stride(0),
-                rows, d, eps,
+                rows, d, n if ext else d, eps,
                 HAS_RESIDUAL=residual is not None,
+                EXT_STAT=ext,
                 ROWS=tile, BLOCK_A=block_a, BLOCK_B=block_b,
                 num_warps=warps,
             )
-            count_launch(rmsnorm, "launches" if residual is None else "residual_launches")
+            attr = "ext_launches" if ext else (
+                "launches" if residual is None else "residual_launches")
+            count_launch(rmsnorm, attr)
     if residual is None:
         return out.view(x.shape)
     return out.view(x.shape), res_out.view(x.shape)
 
 
-def _launch_bwd(dy, x, w, eps):
-    """The backward kernels on CUDA tensors; on meta tensors their checks
-    and outputs only."""
+def _launch_stat(x, dy, w):
+    """``rmsnorm_stat_kernel`` on CUDA tensors (its checks and output only
+    on meta tensors): one fp32 value a row."""
+    _check(x, w, None)
+    if dy is not None and (dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous()):
+        raise ValueError("rmsnorm row_stat: dy must match x in shape and dtype, contiguous")
+    d = x.shape[-1]
+    x2 = x.view(-1, d)
+    rows = x2.shape[0]
+    with launch("rmsnorm_stat", lambda: stat_cost(rows, d, x.element_size(), w.element_size(),
+                                                  dy is not None)):
+        out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        if rows and x.device.type == "cuda":
+            from . import rmsnorm as kernel  # imports triton: CUDA path only
+
+            y2 = dy.view(-1, d) if dy is not None else x2
+            tile, block_a, block_b, warps = _fwd_launch(rows, d, _sms(x.device))
+            kernel.rmsnorm_stat_kernel[(-(-rows // tile),)](
+                x2, y2, w, out, x2.stride(0), y2.stride(0), rows, d,
+                HAS_Y=dy is not None, ROWS=tile, BLOCK_A=block_a, BLOCK_B=block_b,
+                num_warps=warps,
+            )
+            count_launch(rmsnorm, "stat_launches")
+    return out
+
+
+def row_stat(
+    x: torch.Tensor, dy: Optional[torch.Tensor] = None, w: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """fp32 [rows] of x [..., D]: each row's sum of x^2, or with ``dy`` (and
+    the scale ``w``) of dy (1 + w) x -- the local partials of the
+    external-statistic mode."""
+    if w is None:
+        w = x.new_zeros(x.shape[-1])
+    if x.device.type == "cpu":
+        return row_stat_ref(x, dy, w)
+    if x.device.type in ("cuda", "meta"):
+        return _launch_stat(x, dy, w)
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+
+
+def rmsnorm_ext(x: torch.Tensor, w: torch.Tensor, ss: torch.Tensor, n: int,
+                eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(ss / n + eps) * (1 + w): the forward of the
+    external-statistic mode, ``ss`` each row's fp32 sum of squares over all
+    its ``n`` columns (not differentiable: :func:`rmsnorm_split` is)."""
+    if x.device.type == "cpu":
+        return rmsnorm_ext_ref(x, w, ss, n, eps)
+    if x.device.type in ("cuda", "meta"):
+        return _launch(x, w, eps, None, ss, n)
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+
+
+def _launch_bwd(dy, x, w, eps, ss=None, c=None, n=None):
+    """The backward kernels on CUDA tensors (with ``ss`` and ``c``: the
+    external-statistic mode); on meta tensors their checks and outputs
+    only."""
     _check(x, w, None)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("rmsnorm backward: dy must match x in shape, dtype and device")
-    with launch("rmsnorm_bwd", lambda: _cost_of(x, w, backward=True)):
-        return _bwd_kernels(dy, x, w, eps)
+    if ss is None:
+        with launch("rmsnorm_bwd", lambda: _cost_of(x, w, backward=True)):
+            return _bwd_kernels(dy, x, w, eps)
+    _check_stat(x, ss, "ss")
+    _check_stat(x, c, "c")
+    with launch("rmsnorm_ext_bwd", lambda: ext_cost(
+            _rows(x), x.shape[-1], x.element_size(), w.element_size(), backward=True)):
+        return _bwd_kernels(dy, x, w, eps, ss, c, n)
 
 
-def _bwd_kernels(dy, x, w, eps):
+def _bwd_kernels(dy, x, w, eps, ss=None, c=None, n=None):
     d = x.shape[-1]
     x2 = x.view(-1, d)
     dy2 = dy.contiguous().view(-1, d)
@@ -187,10 +313,12 @@ def _bwd_kernels(dy, x, w, eps):
     n_prog = -(-rows // per_prog) if rows else 1
     part = torch.empty((n_prog, d), dtype=torch.float32, device=x.device)
     if rows:
+        ext = ss is not None
         kernel.rmsnorm_bwd_kernel[(n_prog,)](
-            x2, w, dy2, dx, part,
+            x2, w, dy2, dx, part, ss if ext else x2, c if ext else x2,
             x2.stride(0), dy2.stride(0), dx.stride(0),
-            rows, per_prog, d, eps,
+            rows, per_prog, d, n if ext else d, eps,
+            EXT_STAT=ext,
             ROWS=tile, BLOCK_A=block_a, BLOCK_B=block_b, STAGES=stages,
             num_warps=warps,
         )
@@ -200,7 +328,7 @@ def _bwd_kernels(dy, x, w, eps):
     kernel.rmsnorm_dw_kernel[(-(-d // block_c),)](
         part, dw, n_prog, d, BLOCK_P=32, BLOCK_C=block_c, num_warps=4,
     )
-    count_launch(rmsnorm, "backward_launches")
+    count_launch(rmsnorm, "backward_launches" if ss is None else "ext_backward_launches")
     return dx.view(x.shape), dw
 
 
@@ -215,6 +343,57 @@ def rmsnorm_bwd(
     if x.device.type in ("cuda", "meta"):
         return _launch_bwd(dy, x, w, eps)
     raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+
+
+def rmsnorm_ext_bwd(
+    dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, ss: torch.Tensor, c: torch.Tensor,
+    n: int, eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, d(scale)) of :func:`rmsnorm_ext` on the local columns, ``c`` each
+    row's sum of dy (1 + w) x over all its ``n`` columns."""
+    if x.device.type == "cpu":
+        return rmsnorm_ext_bwd_ref(dy, x, w, ss, c, n, eps)
+    if x.device.type in ("cuda", "meta"):
+        return _launch_bwd(dy, x, w, eps, ss, c, n)
+    raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+
+
+class SplitRMSNorm(torch.autograd.Function):
+    """The (1 + w)-scaled RMSNorm of rows whose ``n`` columns are split over
+    ranks, x and w this rank's columns: forward, each row's sum of squares
+    summed over the ranks by ``reduce`` (an in-place all-reduce), then the
+    local columns scaled; backward, each row's sum of dy (1 + w) x summed
+    the same way, then dx and this rank's d(scale).  Saves (x, w, the
+    summed squares)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float, n: int, reduce):
+        ss = row_stat(x)
+        reduce(ss)
+        ctx.save_for_backward(x, w, ss)
+        ctx.eps, ctx.n, ctx.reduce = eps, n, reduce
+        return rmsnorm_ext(x, w, ss, n, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, ss = ctx.saved_tensors
+        dy = dy.contiguous()
+        c = row_stat(x, dy, w)
+        ctx.reduce(c)
+        dx, dw = rmsnorm_ext_bwd(dy, x, w, ss, c, ctx.n, ctx.eps)
+        return dx, dw, None, None, None
+
+
+def rmsnorm_split(x: torch.Tensor, w: torch.Tensor, eps: float, n: int, reduce) -> torch.Tensor:
+    """RMSNorm over rows of ``n`` columns of which x [..., D] and w [D] are
+    this rank's; ``reduce(t)`` sums the fp32 row statistics t [rows] over
+    the ranks that hold the other columns, in place (see
+    :class:`SplitRMSNorm`)."""
+    if w.shape != (x.shape[-1],):
+        raise ValueError(f"rmsnorm: w {tuple(w.shape)} for rows of {x.shape[-1]}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    return SplitRMSNorm.apply(x.contiguous(), w, eps, n, reduce)
 
 
 class RMSNorm(torch.autograd.Function):
@@ -265,3 +444,6 @@ def rmsnorm(
 rmsnorm.launches = 0
 rmsnorm.backward_launches = 0
 rmsnorm.residual_launches = 0
+rmsnorm.stat_launches = 0
+rmsnorm.ext_launches = 0
+rmsnorm.ext_backward_launches = 0

@@ -24,6 +24,14 @@ rounded to x's dtype and normalizes the unrounded fp32 sum, as the TPU kernel
 does.  Its backward, the port's own (the JAX package differentiates rms_norm
 by autodiff), is ``rmsnorm_bwd_kernel`` + ``rmsnorm_dw_kernel`` below.
 
+The external-statistic mode (``EXT_STAT``, both ways) normalizes a row whose
+columns are split over ranks (the Mamba2 gate norm under tensor
+parallelism): ``rmsnorm_stat_kernel`` gives each local row's fp32 partial
+(the sum of squares forward, sum dy * (1 + w) * x backward), the caller
+all-reduces it over the ranks, and the kernels then read each row's total
+from ``SS`` (and ``CC``) instead of reducing their own columns, dividing by
+the whole row's width ``N`` rather than the local ``D``.
+
 This module imports ``triton`` at the top: the wrapper in ``ops.py`` imports
 it only when it launches the kernel on a CUDA tensor.
 """
@@ -34,10 +42,11 @@ import triton.language as tl
 
 @triton.jit
 def rmsnorm_kernel(
-    X, R, W, O, RES,
+    X, R, W, O, RES, SS,
     stride_x, stride_r, stride_o, stride_res,
-    n_rows, D, eps,
+    n_rows, D, N, eps,
     HAS_RESIDUAL: tl.constexpr,
+    EXT_STAT: tl.constexpr,
     ROWS: tl.constexpr,
     BLOCK_A: tl.constexpr,
     BLOCK_B: tl.constexpr,
@@ -55,7 +64,8 @@ def rmsnorm_kernel(
         ra = tl.load(R + rows[:, None] * stride_r + ca, mask=ma, other=0.0).to(tl.float32)
         xa = xa + ra
         tl.store(RES + rows[:, None] * stride_res + ca, xa.to(RES.dtype.element_ty), mask=ma)
-    ss = tl.sum(xa * xa, axis=1)
+    if not EXT_STAT:
+        ss = tl.sum(xa * xa, axis=1)
     if BLOCK_B > 0:
         cb = BLOCK_A + tl.arange(0, BLOCK_B)[None, :]
         mb = rmask & (cb < D)
@@ -64,8 +74,11 @@ def rmsnorm_kernel(
             rb = tl.load(R + rows[:, None] * stride_r + cb, mask=mb, other=0.0).to(tl.float32)
             xb = xb + rb
             tl.store(RES + rows[:, None] * stride_res + cb, xb.to(RES.dtype.element_ty), mask=mb)
-        ss += tl.sum(xb * xb, axis=1)
-    rstd = tl.rsqrt(ss / D + eps)[:, None]
+        if not EXT_STAT:
+            ss += tl.sum(xb * xb, axis=1)
+    if EXT_STAT:  # the whole row's sum of squares, from the caller
+        ss = tl.load(SS + rows, mask=rows < n_rows, other=0.0)
+    rstd = tl.rsqrt(ss / N + eps)[:, None]
     wa = 1.0 + tl.load(W + ca, mask=ca < D, other=0.0).to(tl.float32)
     tl.store(O + rows[:, None] * stride_o + ca, (xa * rstd * wa).to(O.dtype.element_ty), mask=ma)
     if BLOCK_B > 0:
@@ -95,9 +108,10 @@ def rmsnorm_kernel(
 
 @triton.jit
 def rmsnorm_bwd_kernel(
-    X, W, DY, DX, PART,
+    X, W, DY, DX, PART, SS, CC,
     stride_x, stride_dy, stride_dx,
-    n_rows, rows_per_prog, D, eps,
+    n_rows, rows_per_prog, D, N, eps,
+    EXT_STAT: tl.constexpr,
     ROWS: tl.constexpr,
     BLOCK_A: tl.constexpr,
     BLOCK_B: tl.constexpr,
@@ -120,17 +134,22 @@ def rmsnorm_bwd_kernel(
         xa = tl.load(X + rows[:, None] * stride_x + ca[None, :], mask=ma, other=0.0).to(tl.float32)
         dya = tl.load(DY + rows[:, None] * stride_dy + ca[None, :], mask=ma, other=0.0).to(tl.float32)
         ga = dya * wa
-        ss = tl.sum(xa * xa, axis=1)
-        c = tl.sum(ga * xa, axis=1)
+        if not EXT_STAT:
+            ss = tl.sum(xa * xa, axis=1)
+            c = tl.sum(ga * xa, axis=1)
         if BLOCK_B > 0:
             mb = rmask & (cb < D)[None, :]
             xb = tl.load(X + rows[:, None] * stride_x + cb[None, :], mask=mb, other=0.0).to(tl.float32)
             dyb = tl.load(DY + rows[:, None] * stride_dy + cb[None, :], mask=mb, other=0.0).to(tl.float32)
             gb = dyb * wb
-            ss += tl.sum(xb * xb, axis=1)
-            c += tl.sum(gb * xb, axis=1)
-        r = tl.rsqrt(ss / D + eps)
-        k = (r * r * r * (c / D))[:, None]
+            if not EXT_STAT:
+                ss += tl.sum(xb * xb, axis=1)
+                c += tl.sum(gb * xb, axis=1)
+        if EXT_STAT:  # the whole row's statistics, from the caller
+            ss = tl.load(SS + rows, mask=rows < row_end, other=0.0)
+            c = tl.load(CC + rows, mask=rows < row_end, other=0.0)
+        r = tl.rsqrt(ss / N + eps)
+        k = (r * r * r * (c / N))[:, None]
         r = r[:, None]
         dxa = ga * r - xa * k
         tl.store(DX + rows[:, None] * stride_dx + ca[None, :], dxa.to(DX.dtype.element_ty), mask=ma)
@@ -142,6 +161,43 @@ def rmsnorm_bwd_kernel(
     tl.store(PART + pid.to(tl.int64) * D + ca, tl.sum(dwa, axis=0), mask=ca < D)
     if BLOCK_B > 0:
         tl.store(PART + pid.to(tl.int64) * D + cb, tl.sum(dwb, axis=0), mask=cb < D)
+
+
+@triton.jit
+def rmsnorm_stat_kernel(
+    X, Y, W, OUT,
+    stride_x, stride_y,
+    n_rows, D,
+    HAS_Y: tl.constexpr,
+    ROWS: tl.constexpr,
+    BLOCK_A: tl.constexpr,
+    BLOCK_B: tl.constexpr,
+):
+    # OUT[row] = the fp32 sum over the row's D columns of x * x, or with
+    # HAS_Y of y * (1 + w) * x: the local partial of the external-statistic
+    # mode, in the tiles and column blocks of rmsnorm_kernel
+    rows = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+    rmask = (rows < n_rows)[:, None]
+    ca = tl.arange(0, BLOCK_A)[None, :]
+    ma = rmask & (ca < D)
+    xa = tl.load(X + rows[:, None] * stride_x + ca, mask=ma, other=0.0).to(tl.float32)
+    if HAS_Y:
+        ya = tl.load(Y + rows[:, None] * stride_y + ca, mask=ma, other=0.0).to(tl.float32)
+        wa = 1.0 + tl.load(W + ca, mask=ca < D, other=0.0).to(tl.float32)
+        acc = tl.sum(ya * wa * xa, axis=1)
+    else:
+        acc = tl.sum(xa * xa, axis=1)
+    if BLOCK_B > 0:
+        cb = BLOCK_A + tl.arange(0, BLOCK_B)[None, :]
+        mb = rmask & (cb < D)
+        xb = tl.load(X + rows[:, None] * stride_x + cb, mask=mb, other=0.0).to(tl.float32)
+        if HAS_Y:
+            yb = tl.load(Y + rows[:, None] * stride_y + cb, mask=mb, other=0.0).to(tl.float32)
+            wb = 1.0 + tl.load(W + cb, mask=cb < D, other=0.0).to(tl.float32)
+            acc += tl.sum(yb * wb * xb, axis=1)
+        else:
+            acc += tl.sum(xb * xb, axis=1)
+    tl.store(OUT + rows, acc, mask=rows < n_rows)
 
 
 @triton.jit

@@ -109,7 +109,10 @@ def attention_block(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full attention sub-block: qkv proj -> rope -> attention -> out proj.
     On ``DTensor`` s it runs on each rank's heads
-    (:func:`repro_torch.distributed.tensor_parallel.attention_block`).
+    (:func:`repro_torch.distributed.tensor_parallel.attention_block`), and a
+    decode step on each rank's slots of a cache whose sequence dim is split
+    (:func:`repro_torch.distributed.tensor_parallel.decode_attention_block`,
+    which builds its own slot positions: ``positions_k`` is not read).
 
     With ``cache``/``cache_index``/``positions_k``: single-token decode -- x
     is [B, 1, d].  Unlike the JAX package, which returns an updated copy, the
@@ -117,10 +120,14 @@ def attention_block(
     window-length caches act as ring buffers) and the same dict is returned.
     """
     if is_dtensor(x):
-        if cache is not None:
-            raise NotImplementedError("sharded decode is not ported yet")
         from ..distributed import tensor_parallel
 
+        if cache is not None:
+            if cache_index is None or x.shape[1] != 1:
+                raise ValueError("cached attention decodes one token at a given cache_index")
+            out = tensor_parallel.decode_attention_block(
+                params, x, cfg, cache, cache_index=cache_index, window=window, rope=rope)
+            return out, cache
         return tensor_parallel.attention_block(
             params, x, positions, cfg, causal=causal, window=window, rope=rope)
     b, s, _ = x.shape
@@ -167,7 +174,17 @@ def cross_attention_block(
     and every key at position 0 and attends non-causally.  A teacher-forced
     x goes through the flash kernel (non-causal, Sq != Sk); a decode step
     passes ``positions`` = (positions_q [B], positions_k [B, Sk]), all 0, and
-    goes through the decode kernel, which then keeps every slot."""
+    goes through the decode kernel, which then keeps every slot.  On
+    ``DTensor`` s both run on each rank's heads, a decode step on each
+    rank's frames of a split cross cache (``positions`` then only marks the
+    step)."""
+    if is_dtensor(x):
+        from ..distributed import tensor_parallel
+
+        if positions is None:
+            return tensor_parallel.cross_attention_block(params, x, enc_kv, cfg)
+        k, v = enc_kv
+        return tensor_parallel.decode_attention_block(params, x, cfg, {"k": k, "v": v})
     b, s, _ = x.shape
     hd = cfg.head_dim_
     q = dense(x, params["q"]).reshape(b, s, cfg.n_heads, hd)
@@ -183,23 +200,33 @@ def precompute_cross_kv(
     params: Dict, enc_out: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention K and V [B, Sk, Hkv, D] from the
-    encoder output [B, Sk, d_model]."""
+    encoder output [B, Sk, d_model] (on ``DTensor`` s, the kv heads on their
+    weights' split: :func:`repro_torch.distributed.tensor_parallel.cross_kv`)."""
+    if is_dtensor(enc_out):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.cross_kv(params, enc_out, cfg)
     b, sk, _ = enc_out.shape
     hd = cfg.head_dim_
-    k = dense(enc_out, params["k"]).reshape(b, sk, cfg.n_kv_heads, hd)
-    v = dense(enc_out, params["v"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    # heads from the weights: a tensor-parallel region holds a share of them
+    k = dense(enc_out, params["k"]).reshape(b, sk, -1, hd)
+    v = dense(enc_out, params["v"]).reshape(b, sk, -1, hd)
     return k, v
 
 
-def ring_positions(cache_index: int, s_cache: int, batch: int, device) -> torch.Tensor:
-    """[B, s_cache] int32: the absolute position each slot of a cache holds
-    once position ``cache_index`` is written at ``cache_index % s_cache``.
+def ring_positions(cache_index: int, s_cache: int, batch: int, device, start: int = 0,
+                   count: Optional[int] = None) -> torch.Tensor:
+    """[B, count] int32: the absolute position each of the slots [start,
+    start + count) of a cache of ``s_cache`` slots holds once position
+    ``cache_index`` is written at ``cache_index % s_cache`` (all of them by
+    default; a rank of a cache split on its slots asks for its range).
 
     Slot j holds pos - ((pos - j) mod s_cache); never-written slots resolve
     to negative positions, which the decode kernel masks."""
-    slots = torch.arange(s_cache, device=device, dtype=torch.int32)
+    count = s_cache - start if count is None else count
+    slots = torch.arange(start, start + count, device=device, dtype=torch.int32)
     positions_k = cache_index - torch.remainder(cache_index - slots, s_cache)
-    return positions_k[None].expand(batch, s_cache)
+    return positions_k[None].expand(batch, count)
 
 
 def init_kv_cache(

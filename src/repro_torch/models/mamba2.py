@@ -8,11 +8,17 @@ per token: a [B, H, P, N] fp32 state and two conv windows, updated in place
 in the layer's cache slice.  Rounding follows the JAX package: the conv, its
 SiLU, ``x * dt`` and ``dA`` in fp32, y cast to the compute dtype before the
 SiLU(z) gate, then the gate norm through the RMSNorm kernel.
+
+Head and channel counts are read off the weights, not the config, so the
+same functions run a tensor-parallel rank's share of the heads
+(:mod:`repro_torch.distributed.tensor_parallel`, which they hand
+``DTensor`` inputs to): ``norm`` then normalises the gate's rows over all
+ranks' columns, and ``groups`` names the B/C groups the local heads use.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,21 +91,36 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return out + b.float()
 
 
-def _split(bcc: torch.Tensor, g: int, n: int):
-    """B and C as [..., G, N] views of the conv output [..., 2GN]."""
+#: a norm of the gate's rows: (y, scale) -> normalised y
+GateNorm = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _split(bcc: torch.Tensor, g: int, n: int, groups: Optional[Tuple[int, int]] = None):
+    """B and C as [..., G, N] views of the conv output [..., 2GN]; with
+    ``groups`` = (first, count) only those groups."""
     lead = bcc.shape[:-1]
-    return bcc[..., : g * n].reshape(*lead, g, n), bcc[..., g * n :].reshape(*lead, g, n)
+    B_, C_ = bcc[..., : g * n].reshape(*lead, g, n), bcc[..., g * n :].reshape(*lead, g, n)
+    if groups is not None:
+        sel = slice(groups[0], groups[0] + groups[1])
+        B_, C_ = B_[..., sel, :], C_[..., sel, :]
+    return B_, C_
 
 
-def _gate(y: torch.Tensor, z: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
-    """The gate norm of y * SiLU(z), then the out projection."""
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["gate_norm"], cfg.norm_eps)
-    return y @ params["out_proj"]["w"].to(y.dtype)
+def _gate(y: torch.Tensor, z: torch.Tensor, params: Dict, cfg: ModelConfig,
+          norm: Optional[GateNorm] = None) -> torch.Tensor:
+    """The gate norm of y * SiLU(z) (``norm``, or the RMSNorm kernel over the
+    local row), then the out projection."""
+    g = y * F.silu(z.float()).to(y.dtype)
+    if norm is None:
+        g = rms_norm(g, params["gate_norm"], cfg.norm_eps)
+    else:
+        g = norm(g, params["gate_norm"]["scale"])
+    return g @ params["out_proj"]["w"].to(g.dtype)
 
 
-def _unsharded(x) -> None:
-    if is_dtensor(x):
-        raise NotImplementedError("sharded execution of the Mamba2 mixer is not ported yet")
+def projections(params: Dict, u: torch.Tensor):
+    """(z, x, bc, dt_raw): the input projections of u [..., d_model]."""
+    return tuple(u @ params[k]["w"].to(u.dtype) for k in ("z_proj", "x_proj", "bc_proj", "dt_proj"))
 
 
 def mamba_block(
@@ -107,29 +128,34 @@ def mamba_block(
     u: torch.Tensor,  # [B, S, d_model]
     cfg: ModelConfig,
     initial_state: Optional[torch.Tensor] = None,  # [B, H, P, N] fp32
+    norm: Optional[GateNorm] = None,
+    groups: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full Mamba2 mixer; returns (out [B, S, d_model], final_state
-    [B, H, P, N] fp32)."""
-    _unsharded(u)
+    [B, H, P, N] fp32).  On ``DTensor`` s it runs on each rank's heads
+    (:func:`repro_torch.distributed.tensor_parallel.mamba_block`)."""
+    if is_dtensor(u):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.mamba_block(params, u, cfg, initial_state)
     dims = mamba_dims(cfg)
     b, s, _ = u.shape
-    h, p, n, g = dims["n_heads"], dims["head_dim"], dims["d_state"], dims["n_groups"]
-    z = u @ params["z_proj"]["w"].to(u.dtype)
-    xr = u @ params["x_proj"]["w"].to(u.dtype)
-    bc = u @ params["bc_proj"]["w"].to(u.dtype)
-    dt_raw = u @ params["dt_proj"]["w"].to(u.dtype)
+    # heads and channels from the weights: a tensor-parallel rank holds a share
+    h, d_inner = params["dt_bias"].shape[-1], params["x_proj"]["w"].shape[-1]
+    p, n, g = dims["head_dim"], dims["d_state"], dims["n_groups"]
+    z, xr, bc, dt_raw = projections(params, u)
     xc = F.silu(_causal_conv(xr, params["conv_x_w"], params["conv_x_b"]))
     bcc = F.silu(_causal_conv(bc, params["conv_bc_w"], params["conv_bc_b"]))
     x = xc.reshape(b, s, h, p)
-    B_, C_ = _split(bcc, g, n)
+    B_, C_ = _split(bcc, g, n, groups)
     dt_ = F.softplus(dt_raw.float() + params["dt_bias"])  # [B, S, H]
     dA = dt_ * -torch.exp(params["A_log"])
     y, final_state = ssd(
         x * dt_[..., None], dA, B_, C_, chunk=_ssm(cfg).chunk, initial_state=initial_state
     )
     y = y + params["D"][:, None] * x
-    y = y.reshape(b, s, dims["d_inner"]).to(u.dtype)
-    return _gate(y, z, params, cfg), final_state
+    y = y.reshape(b, s, d_inner).to(u.dtype)
+    return _gate(y, z, params, cfg, norm), final_state
 
 
 # ------------------------------------------------------------------ decode
@@ -153,6 +179,35 @@ def init_mamba_cache(
     }
 
 
+def conv_window(cache_win: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """A conv's window [B, W, Ch]: its cache [B, W-1, Ch] then the new input
+    [B, Ch], in fp32 as jnp.concatenate promotes them."""
+    return torch.cat([cache_win, new[:, None].float()], dim=1)
+
+
+def conv1(win: torch.Tensor, w_: torch.Tensor, b_: torch.Tensor) -> torch.Tensor:
+    """The depthwise conv's output at the window's last position, fp32."""
+    return (win * w_.float()).sum(dim=1) + b_.float()
+
+
+def ssm_update(params: Dict, state: torch.Tensor, x: torch.Tensor, dt_raw: torch.Tensor,
+               B_: torch.Tensor, C_: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the SSM recurrence on the heads of ``state`` [B, H, P, N]
+    (fp32), x [B, H, P], B/C [B, G, N] of the groups those heads use:
+    (the new state, y [B, H, P] fp32)."""
+    b, h, p, n = state.shape
+    g = B_.shape[1]
+    dt_ = F.softplus(dt_raw.float() + params["dt_bias"])  # [B, H]
+    decay = torch.exp(dt_ * -torch.exp(params["A_log"]))
+    # heads as [G, H/G] so that B and C broadcast over the heads of their
+    # group instead of being repeated to them
+    rep = h // g
+    dtx = (dt_[..., None] * x).view(b, g, rep, p, 1)
+    new = state * decay[:, :, None, None] + (dtx * B_[:, :, None, None, :]).view(b, h, p, n)
+    y = torch.matmul(new.view(b, g, rep, p, n), C_[:, :, None, :, None]).view(b, h, p)
+    return new, y + params["D"][:, None] * x
+
+
 def mamba_decode_step(
     params: Dict,
     u: torch.Tensor,  # [B, 1, d_model]
@@ -161,39 +216,24 @@ def mamba_decode_step(
 ) -> torch.Tensor:
     """O(1) decode of one token; returns out [B, 1, d_model].  Unlike the JAX
     function, which returns a new cache, the state and the conv windows are
-    written into ``cache`` in place."""
-    _unsharded(u)
+    written into ``cache`` in place.  On ``DTensor`` s each rank steps its
+    heads (:func:`repro_torch.distributed.tensor_parallel.mamba_decode_step`)."""
+    if is_dtensor(u):
+        from ..distributed import tensor_parallel
+
+        return tensor_parallel.mamba_decode_step(params, u, cache, cfg)
     dims = mamba_dims(cfg)
     b = u.shape[0]
-    h, p, n, g = dims["n_heads"], dims["head_dim"], dims["d_state"], dims["n_groups"]
-    u0 = u[:, 0]
-    z = u0 @ params["z_proj"]["w"].to(u.dtype)
-    xr = u0 @ params["x_proj"]["w"].to(u.dtype)
-    bc = u0 @ params["bc_proj"]["w"].to(u.dtype)
-    dt_raw = u0 @ params["dt_proj"]["w"].to(u.dtype)
-    # conv windows: [cache | new], in fp32 as jnp.concatenate promotes them
-    win_x = torch.cat([cache["conv_x"], xr[:, None].float()], dim=1)
-    win_bc = torch.cat([cache["conv_bc"], bc[:, None].float()], dim=1)
-
-    def conv1(win, w_, b_):
-        return (win * w_.float()).sum(dim=1) + b_.float()
-
-    x = F.silu(conv1(win_x, params["conv_x_w"], params["conv_x_b"])).reshape(b, h, p)
+    p, n, g = dims["head_dim"], dims["d_state"], dims["n_groups"]
+    z, xr, bc, dt_raw = projections(params, u[:, 0])
+    win_x = conv_window(cache["conv_x"], xr)
+    win_bc = conv_window(cache["conv_bc"], bc)
+    x = F.silu(conv1(win_x, params["conv_x_w"], params["conv_x_b"])).reshape(b, -1, p)
     bcc = F.silu(conv1(win_bc, params["conv_bc_w"], params["conv_bc_b"]))
     B_, C_ = _split(bcc, g, n)  # [B, G, N]
-    dt_ = F.softplus(dt_raw.float() + params["dt_bias"])  # [B, H]
-    decay = torch.exp(dt_ * -torch.exp(params["A_log"]))
-    # heads as [G, H/G] so that B and C broadcast over the heads of their
-    # group instead of being repeated to them
-    rep = h // g
-    dtx = (dt_[..., None] * x).view(b, g, rep, p, 1)
-    state = (
-        cache["ssm"] * decay[:, :, None, None] + (dtx * B_[:, :, None, None, :]).view(b, h, p, n)
-    )
-    y = torch.matmul(state.view(b, g, rep, p, n), C_[:, :, None, :, None]).view(b, h, p)
-    y = y + params["D"][:, None] * x
+    state, y = ssm_update(params, cache["ssm"], x, dt_raw, B_, C_)
     cache["ssm"].copy_(state)
     cache["conv_x"].copy_(win_x[:, 1:])
     cache["conv_bc"].copy_(win_bc[:, 1:])
-    y = y.reshape(b, 1, dims["d_inner"]).to(u.dtype)
+    y = y.reshape(b, 1, -1).to(u.dtype)
     return _gate(y, z[:, None], params, cfg)

@@ -19,6 +19,12 @@ the decode kernel in a decode step; every norm runs the rmsnorm kernel.
 The decode cache holds a ``max_len`` self-attention cache (global, masked
 by slot position) and the cross K/V that :func:`prefill_cross_cache`
 fills once per request; both are updated in place.
+
+Under a mesh (``DTensor`` params, batch and cache) the layers run as the
+regions of :mod:`repro_torch.distributed.tensor_parallel`: the encoder's
+non-causal attention and every MLP on the heads' / columns' split, the
+cross-attention on its own region, and a decode step against self and
+cross caches whose sequence dim is split as the cache rules say.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.context import constrain, is_dtensor
+from ..distributed.context import bind, constrain, is_dtensor
 from .attention import (
     attention_block,
     cross_attention_block,
@@ -89,12 +95,6 @@ def _arange_positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
 
 
-def _unsharded(params: Dict) -> None:
-    if is_dtensor(params["enc_norm"]["scale"]):
-        raise NotImplementedError("sharded execution of the encoder-decoder family is not "
-                                  "ported yet")
-
-
 # ---------------------------------------------------------------- encoder
 def _enc_layer(x, lp, positions, rope, cfg):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -107,14 +107,15 @@ def _enc_layer(x, lp, positions, rope, cfg):
 def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
     """frames [B, F, d_model] (the stub frontend's output) -> the encoder's
     final-norm states [B, F, d_model]."""
-    _unsharded(params)
     x = constrain(frames.to(dt(cfg.compute_dtype)), "batch")
     positions = _arange_positions(x)
     rope = rope_frequencies(cfg.head_dim_, positions, cfg.rope_theta)
     for i in range(_enc(cfg).n_enc_layers):
         lp = _group_slice(params["encoder"], i)
         if remat:
-            x = checkpoint(_enc_layer, x, lp, positions, rope, cfg, use_reentrant=False)
+            # bind: the recompute runs on autograd's thread, which does not
+            # see this one's distribution context
+            x = checkpoint(bind(_enc_layer), x, lp, positions, rope, cfg, use_reentrant=False)
         else:
             x = _enc_layer(x, lp, positions, rope, cfg)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -153,7 +154,8 @@ def forward(
     for i in range(cfg.n_layers):
         lp = _group_slice(params["decoder"], i)
         if remat:
-            x = checkpoint(_dec_layer, x, lp, enc_out, positions, rope, cfg, use_reentrant=False)
+            x = checkpoint(bind(_dec_layer), x, lp, enc_out, positions, rope, cfg,
+                           use_reentrant=False)
         else:
             x = _dec_layer(x, lp, enc_out, positions, rope, cfg)
     if last_only:
@@ -202,9 +204,14 @@ def prefill_cross_cache(params: Dict, frames: torch.Tensor, cache: Dict, cfg: Mo
     cache (in place, once per request); returns the cache."""
     enc_out = encode(params, frames, cfg)
     for i in range(cfg.n_layers):
-        k, v = precompute_cross_kv(_group_slice(params["decoder"], i)["cross_attn"], enc_out, cfg)
-        cache["cross"]["k"][i].copy_(k)
-        cache["cross"]["v"][i].copy_(v)
+        kv = precompute_cross_kv(_group_slice(params["decoder"], i)["cross_attn"], enc_out, cfg)
+        for name, t in zip(("k", "v"), kv):
+            dst = cache["cross"][name][i]
+            if is_dtensor(dst):  # into this rank's shard, laid out as the cache is
+                with torch.no_grad():
+                    dst.to_local().copy_(t.redistribute(placements=dst.placements).to_local())
+            else:
+                dst.copy_(t)
     return {"self": cache["self"], "cross": cache["cross"]}
 
 

@@ -149,11 +149,19 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         # remat and plain-version checks at 1 layer
         DENSE_TRAIN_MODEL="tiny-granite", DENSE_TRAIN_LAYERS=2, DENSE_REMAT_LAYERS=1,
         DENSE_PLAIN_SEQ=16,
-        # phase 14: tiny-moe uncut through the sharded step over gloo (one rank)
+        # phase 14: tiny-moe uncut through the sharded step over gloo (one
+        # rank), tiny-mamba cut to 2 layers (its fp32 gradients at 1 layer on
+        # 16 tokens), tiny cut to 6 layers (a group of 5 swa : 1 global)
+        # decoding phase 4's tiny prompts past its 8-slot ring's wrap
         DIST_MODEL="tiny-moe", DIST_LAYERS=2, DIST_STEPS=3,
-        # phase 15: the tiny trained cells on meta; the production cell is a
-        # cheap one (the script's takes ~15 s on a host CPU)
-        DRYRUN_CELL=("gemma3-1b", "prefill_32k"),
+        DIST_SSM_MODEL="tiny-mamba", DIST_SSM_LAYERS=2, DIST_SSM_GRAD_LAYERS=1,
+        DIST_SSM_GRAD_SEQ=16, DIST_DECODE_MODEL="tiny", DIST_DECODE_LAYERS=6,
+        # phase 3's new modes at small shapes (the partial mode's per-rank
+        # shapes are gemma3-1b's, derived from the production mesh)
+        DECODE_FOLD_CASE=(2, 64, 4, 1, 16, 50, 8), RMSNORM_EXT_CASES=[(40, 64, 128)],
+        # phase 15: the tiny trained cells on meta; the production cells are
+        # cheap ones (the script's take ~15-30 s each on a host CPU)
+        DRYRUN_CELLS=[("gemma3-1b", "prefill_32k"), ("gemma3-1b", "decode_32k")],
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -197,6 +205,14 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     monkeypatch.setattr(ssd_ops, "ssd_ref", counting(ssd_ops.ssd_ref, ssd_ops.ssd))
     monkeypatch.setattr(ssd_ops, "ssd_bwd_ref", counting(
         ssd_ops.ssd_bwd_ref, ssd_ops.ssd, "backward_launches"))
+    monkeypatch.setattr(dec_ops, "decode_attention_partial_ref", counting(
+        dec_ops.decode_attention_partial_ref, dec_ops.decode_attention, "partial_launches"))
+    monkeypatch.setattr(norm_ops, "row_stat_ref", counting(
+        norm_ops.row_stat_ref, norm_ops.rmsnorm, "stat_launches"))
+    monkeypatch.setattr(norm_ops, "rmsnorm_ext_ref", counting(
+        norm_ops.rmsnorm_ext_ref, norm_ops.rmsnorm, "ext_launches"))
+    monkeypatch.setattr(norm_ops, "rmsnorm_ext_bwd_ref", counting(
+        norm_ops.rmsnorm_ext_bwd_ref, norm_ops.rmsnorm, "ext_backward_launches"))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -206,9 +222,13 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
     kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
-    assert sorted(kernels) == ["decode_attention", "flash_attention", "flash_attention_bwd",
-                               "rmsnorm", "rmsnorm_bwd", "rmsnorm_residual", "ssd_scan",
+    assert sorted(kernels) == ["decode_attention", "decode_attention_partial", "flash_attention",
+                               "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "rmsnorm_ext",
+                               "rmsnorm_ext_bwd", "rmsnorm_residual", "rmsnorm_stat", "ssd_scan",
                                "ssd_scan_bwd"]
+    # the sharded paths' modes: 0 on every unsharded path
+    new = {"decode_attention_partial": 0, "rmsnorm_stat": 0, "rmsnorm_ext": 0,
+           "rmsnorm_ext_bwd": 0}
     steps = 10 + 4 - 1
     assert kernels["decode_attention"]["launches"] == 8 * steps
     assert kernels["rmsnorm"]["launches"] == 17 * steps
@@ -233,7 +253,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     pilot = {name: k["launches_by_path"]["pilot"] for name, k in kernels.items()}
     assert pilot == {"flash_attention": 4 * 6, "flash_attention_bwd": 4 * 3,
                      "rmsnorm": 4 * 13 + 2 * 17 * 8, "rmsnorm_bwd": 4 * 7,
-                     "decode_attention": 2 * 8 * 8, "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                     "decode_attention": 2 * 8 * 8, "rmsnorm_residual": 0, "ssd_scan": 0,
+                     "ssd_scan_bwd": 0, **new}
     # B2's cases: one device kernel a call, and the main path's split plans
     dec = kernels["decode_attention"]["cases"]
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
@@ -248,13 +269,13 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert n_fwd in (2, 3)
     assert moe == {"decode_attention": 2 * 2 * 13, "rmsnorm": 2 * 5 * 13 + 5 * n_fwd,
                    "flash_attention": 2 * n_fwd, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                   "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                   "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
     # moe-train: 2 evals (2 attention, 5 norms each) and 4 remat steps (2 + 2
     # attention forwards, 2 backwards; 5 + 4 norm forwards, 5 backwards)
     moe_train = {name: k["launches_by_path"]["moe-train"] for name, k in kernels.items()}
     assert moe_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
                          "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
-                         "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                         "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
     # whisper (2 encoder + 2 decoder layers): the cross-cache prefill's encoder
     # (2 attentions, 5 norms), 4 + 6 - 1 engine steps and the one after them
     # (two decode attentions and 7 norms each), the forward (2 + 2 x 2
@@ -264,7 +285,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     whisper = {name: k["launches_by_path"]["whisper"] for name, k in kernels.items()}
     assert whisper == {"decode_attention": 10 * 4, "flash_attention": 2 + 6 + 2 * 6 + 4 * 12,
                        "flash_attention_bwd": 4 * 6, "rmsnorm": 5 + 10 * 7 + 12 + 2 * 12 + 4 * 22,
-                       "rmsnorm_bwd": 4 * 12, "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                       "rmsnorm_bwd": 4 * 12, "rmsnorm_residual": 0, "ssd_scan": 0,
+                       "ssd_scan_bwd": 0, **new}
     # ssm-train: tiny-mamba (3 mamba layers, each its own stacked group) and
     # tiny-zamba (a group of 5 mamba + the shared attention block, a tail of 2
     # mamba), 2 evals and 4 remat steps each; the stacked groups' mamba layers
@@ -275,7 +297,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         "ssd_scan_bwd": 4 * 3 + 4 * 7,
         "flash_attention": 2 * 1 + 4 * 2, "flash_attention_bwd": 4 * 1,
         "rmsnorm": (2 * 7 + 4 * (7 + 6)) + (2 * 17 + 4 * (17 + 12)),
-        "rmsnorm_bwd": 4 * 7 + 4 * 17, "decode_attention": 0, "rmsnorm_residual": 0}
+        "rmsnorm_bwd": 4 * 7 + 4 * 17, "decode_attention": 0, "rmsnorm_residual": 0, **new}
     assert kernels["ssd_scan_bwd"]["launches"] == ssm_train["ssd_scan_bwd"]
     # dense-serve: tiny-danube (2 layers) decodes 10 + 4 - 1 steps and the
     # engine's next one, then runs the forward; tiny-granite (1 layer) 8 + 4 - 1
@@ -283,21 +305,41 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     dense = {name: k["launches_by_path"]["dense-serve"] for name, k in kernels.items()}
     assert dense == {"decode_attention": 14 * 2 + 12 * 1, "rmsnorm": (14 * 5 + 5) + (12 * 3 + 3),
                      "flash_attention": 2 + 1, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                     "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                     "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
     # dense-train: tiny-granite (2 layers, 48/1 heads), 2 evals (2 attention,
     # 5 norms each) and 4 remat steps (2 + 2 attention forwards, 2 backwards;
     # 5 + 4 norm forwards, 5 backwards)
     dense_train = {name: k["launches_by_path"]["dense-train"] for name, k in kernels.items()}
     assert dense_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
                            "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
-                           "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                           "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
     # dist-train: tiny-moe (2 layers) through the sharded step, 3 remat steps
     # (2 + 2 attention forwards, 2 backwards; 5 + 4 norm forwards, 5
     # backwards), equal to the unsharded step's
     dist_train = {name: k["launches_by_path"]["dist-train"] for name, k in kernels.items()}
     assert dist_train == {"flash_attention": 3 * 4, "flash_attention_bwd": 3 * 2,
                           "rmsnorm": 3 * 9, "rmsnorm_bwd": 3 * 5, "decode_attention": 0,
-                          "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+                          "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
+    # dist-ssm: tiny-mamba (2 mamba layers, each a stacked group) through the
+    # sharded step, 3 remat steps: its gate norms (2 forward, 2 again in the
+    # recompute, 2 backward) on the external-statistic mode, one row
+    # statistic each, its ln1s and final norm on B3a (2 + 2 + 1 forward, 3
+    # backward), B4 2 + 2 forward and 2 backward
+    dist_ssm = {name: k["launches_by_path"]["dist-ssm"] for name, k in kernels.items()}
+    assert dist_ssm == {**{name: 0 for name in dist_ssm},
+                        "ssd_scan": 3 * 4, "ssd_scan_bwd": 3 * 2, "rmsnorm": 3 * 5,
+                        "rmsnorm_bwd": 3 * 3, "rmsnorm_ext": 3 * 4, "rmsnorm_ext_bwd": 3 * 2,
+                        "rmsnorm_stat": 3 * 6}
+    # dist-decode: tiny cut to 6 layers, 10 + 4 steps sharded: B2's partial
+    # mode on every layer, 13 norms a step
+    dist_decode = {name: k["launches_by_path"]["dist-decode"] for name, k in kernels.items()}
+    assert dist_decode == {**{name: 0 for name in dist_decode},
+                           "decode_attention_partial": 14 * 6, "rmsnorm": 14 * 13}
+    for name in new:
+        assert kernels[name]["launches"] > 0 and kernels[name]["library_ms"] is None
+    # the fold case: its last range keeps no slot
+    fold = kernels["decode_attention_partial"]["cases"][-1]
+    assert fold["case"] == "fold of 8 ranges" and fold["empty_ranges"] == [7]
     # h2o-danube's phase 12 case runs the forward only; granite-34b's G 48
     # runs both ways at its serve and its training shape
     fwd = [c["case"] for c in kernels["flash_attention"]["cases"]]

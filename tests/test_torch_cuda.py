@@ -1350,3 +1350,94 @@ def test_group_12_attention_in_local_map_raises_before_any_launch(cuda, card_mes
                         rope=rope_frequencies(cfg.head_dim_, pos, cfg.rope_theta))
     torch.cuda.synchronize()
     assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.backward_launches) == before
+
+
+# ----------------------------------------------- modes of a split over ranks
+@pytest.mark.parametrize("d,g", [(64, 1), (256, 4), (128, 48), (80, 4)])
+@pytest.mark.parametrize("n", [1, 2, 37, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_partial_mode_matches_plain(cuda, d, g, n, dtype):
+    """B2's partial mode on one rank's ``n`` slots of a 4n-slot ring at a
+    position where the early row keeps nothing of this range: the fp32 out
+    and the log-sum-exp (-inf exactly where the plain version's is)."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_partial_ref
+    from repro_torch.models.attention import ring_positions
+
+    gen = torch.Generator(device=cuda).manual_seed(d + g + n)
+    b, hkv, sk = 3, 1 if g == 48 else 2, 4 * n
+    k = torch.randn(b, n, hkv, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, n, hkv, d, generator=gen, device=cuda).to(dtype)
+    q = torch.randn(b, 1, hkv * g, d, generator=gen, device=cuda).to(dtype)
+    pos = torch.tensor([5 * n, 2 * n, 0], device=cuda, dtype=torch.int32)
+    lo = 2 * n  # the third range: past row 2's only slot
+    pos_k = torch.cat([ring_positions(int(p), sk, 1, cuda, start=lo, count=n) for p in pos])
+    for window in (None, n + 1):
+        before = ops.decode_attention.partial_launches
+        out, lse = ops.decode_attention_partial(q, k, v, pos, pos_k, window=window)
+        ref, ref_lse = decode_attention_partial_ref(q[:, 0], k, v, pos, pos_k, window=window)
+        torch.cuda.synchronize()
+        assert ops.decode_attention.partial_launches == before + 1
+        assert out.dtype == lse.dtype == torch.float32
+        _close(out, ref, torch.float32)
+        empty = torch.isinf(ref_lse)
+        assert bool(empty[2].all()) and torch.equal(torch.isinf(lse), empty)
+        assert bool((out[2] == 0).all())
+        assert (lse[~empty] - ref_lse[~empty]).abs().max().item() < 1e-4
+
+
+def test_decode_partial_folds_to_the_whole_cache(cuda):
+    """A 1024-slot cache cut into 8 ranges at position 800 (the last keeps
+    nothing): the folded partials equal B2 on the whole cache."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models.attention import ring_positions
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, sk, hq, hkv, d, pos = 4, 1024, 4, 1, 256, 800
+    q = torch.randn(b, 1, hq, d, generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(torch.bfloat16)
+    pq = torch.full((b,), pos, device=cuda, dtype=torch.int32)
+    parts = [ops.decode_attention_partial(q, k[:, r * 128:(r + 1) * 128],
+                                          v[:, r * 128:(r + 1) * 128], pq,
+                                          ring_positions(pos, sk, b, cuda, start=r * 128, count=128))
+             for r in range(8)]
+    lses = torch.stack([p[1] for p in parts])
+    folded = ops.fold_partials(torch.stack([p[0] for p in parts]), lses).to(torch.bfloat16)
+    whole = ops.decode_attention(q, k, v, pq, ring_positions(pos, sk, b, cuda))[:, 0]
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(lses[7]).all())
+    _close(folded, whole, torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,d,width", [(1, 64, 128), (300, 1152, 1152), (4097, 256, 2048),
+                                          (16384, 2048, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_external_statistic_matches_plain(cuda, rows, d, width, dtype):
+    """B3a's external-statistic mode on this rank's first ``d`` columns of
+    rows of ``width``: the row statistics, the forward and the backward
+    against their plain versions, one launch each."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import (rmsnorm_ext_bwd_ref, rmsnorm_ext_ref,
+                                                 row_stat_ref)
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    xf = (torch.randn(rows, width, generator=gen, device=cuda) * 3).to(dtype)
+    dyf = torch.randn(rows, width, generator=gen, device=cuda).to(dtype)
+    wf = (torch.randn(width, generator=gen, device=cuda) * 0.1).to(dtype)
+    x, dy, w = xf[:, :d].contiguous(), dyf[:, :d].contiguous(), wf[:d].contiguous()
+    counts = lambda: (ops.rmsnorm.stat_launches, ops.rmsnorm.ext_launches,  # noqa: E731
+                      ops.rmsnorm.ext_backward_launches)
+    before = counts()
+    ss, c = ops.row_stat(xf), ops.row_stat(xf, dyf, wf)
+    out = ops.rmsnorm_ext(x, w, ss, width)
+    dx, dw = ops.rmsnorm_ext_bwd(dy, x, w, ss, c, width)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 1)
+    _close_grad(ss, row_stat_ref(xf), torch.float32)
+    _close_grad(c, row_stat_ref(xf, dyf, wf), torch.float32)
+    _close(out, rmsnorm_ext_ref(x, w, ss, width), dtype)
+    dx_ref, dw_ref = rmsnorm_ext_bwd_ref(dy, x, w, ss, c, width)
+    assert dx.dtype == dtype and dw.dtype == dtype
+    _close_grad(dx, dx_ref, dtype)
+    _close_grad(dw, dw_ref, dtype)

@@ -147,3 +147,82 @@ def test_split_fold_on_a_wrapped_ring_at_head_dim_80():
     plain = decode_attention_ref(qt, kt, vt, pq, pk, window=window)
     assert _maxerr(split.numpy(), plain.numpy()) < TOL
     assert bool((split[-1] == 0).all())
+
+
+# ------------------------------------------------------------ partial mode
+# B2's partial mode runs on one rank's slot range of a cache split over
+# ranks; its plain version, folded over the ranges in rank order, must be
+# the unsharded plain version.  (ranges, ring length, window, the rows'
+# query positions): gemma3-1b's 512-slot ring over 8 ranks past its wrap,
+# with the early row keeping nothing in most ranges; its ring over 256
+# ranks (2 slots a rank); the 1024-slot global cache over 8 ranks at
+# position 100 (7 of 8 ranges hold nothing kept)
+PARTIAL_CASES = [
+    ("ring over 8", 8, 512, 512, [543, 40, -1]),
+    ("ring over 256", 256, 512, 512, [600, 3, 511]),
+    ("global at 100", 8, 1024, None, [100, 100, 0]),
+]
+
+
+@pytest.mark.parametrize("case", PARTIAL_CASES, ids=[c[0] for c in PARTIAL_CASES])
+def test_partial_mode_folded_over_ranges_is_the_plain_version(case):
+    from repro_torch.kernels.decode_attention.ops import fold_partials
+    from repro_torch.kernels.decode_attention.ref import decode_attention_partial_ref
+    from repro_torch.models.attention import ring_positions
+
+    _, ranks, sk, window, pos = case
+    b, hkv, g, d = len(pos), 1, 4, 64
+    rng = np.random.default_rng(sk + ranks)
+    qt, kt, vt = (torch.from_numpy(a) for a in _inputs(rng, b, sk, hkv, g, d))
+    pq = torch.tensor(pos, dtype=torch.int32)
+    pk = torch.stack([ring_positions(max(p, 0), sk, 1, "cpu")[0] for p in pos])
+    plain = decode_attention_ref(qt, kt, vt, pq, pk, window=window)
+    n = sk // ranks
+    outs, lses, empty = [], [], 0
+    for r in range(ranks):
+        sl = slice(r * n, (r + 1) * n)
+        o, lse = decode_attention_partial_ref(qt, kt[:, sl], vt[:, sl], pq,
+                                              pk[:, sl].contiguous(), window=window)
+        assert o.dtype == lse.dtype == torch.float32
+        outs.append(o)
+        lses.append(lse)
+        empty += int(torch.isinf(lse).all(dim=-1).sum())  # rows with no kept slot here
+    folded = fold_partials(torch.stack(outs), torch.stack(lses))
+    assert empty > 0
+    assert _maxerr(folded.numpy(), plain.numpy()) < TOL
+
+
+@pytest.mark.parametrize("window", [None, 32])
+def test_partial_mode_lse_is_the_logsumexp_of_the_kept_scores(window):
+    from repro_torch.kernels.decode_attention.ref import decode_attention_partial_ref
+
+    b, sk, hkv, g, d = 3, 48, 2, 3, 64
+    rng = np.random.default_rng(7)
+    qt, kt, vt = (torch.from_numpy(a) for a in _inputs(rng, b, sk, hkv, g, d))
+    pq = torch.tensor([47, 20, -5], dtype=torch.int32)
+    pk = torch.arange(sk, dtype=torch.int32)[None].expand(b, sk)
+    _, lse = decode_attention_partial_ref(qt, kt, vt, pq, pk, window=window)
+    s = torch.einsum("bhgd,bkhd->bhgk", qt.reshape(b, hkv, g, d), kt) * d**-0.5
+    dpos = pq[:, None].long() - pk.long()
+    keep = (dpos >= 0) & ((dpos < window) if window else True)
+    want = torch.logsumexp(s.masked_fill(~keep[:, None, None], float("-inf")), -1)
+    want = want.reshape(b, hkv * g)
+    assert torch.allclose(lse[:2], want[:2], atol=1e-5)
+    assert bool(torch.isinf(lse[2]).all() and (lse[2] < 0).all())  # keeps nothing
+
+
+def test_split_order_partial_mode_matches_the_partial_plain_version():
+    """The kernel's order of work (splits of 32-slot tiles folded in cluster
+    rank order) gives the partial mode's out and lse too."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_partial_ref
+
+    b, sk, hkv, g, d = 2, 100, 2, 4, 64
+    rng = np.random.default_rng(11)
+    qt, kt, vt = (torch.from_numpy(a) for a in _inputs(rng, b, sk, hkv, g, d))
+    pq = torch.tensor([70, 5], dtype=torch.int32)
+    pk = torch.arange(sk, dtype=torch.int32)[None].expand(b, sk)
+    o, lse = decode_attention_split_ref(qt, kt, vt, pq, pk, n_split=4, split_len=25,
+                                        window=64, partial=True)
+    ro, rlse = decode_attention_partial_ref(qt, kt, vt, pq, pk, window=64)
+    assert _maxerr(o.numpy(), ro.numpy()) < TOL
+    assert _maxerr(lse.numpy(), rlse.numpy()) < TOL

@@ -271,3 +271,51 @@ def test_rmsnorm_backward_stages_cover_what_triton_asked_for():
     assert (ops.BWD_STAGES - 1) * per_stage + 1024 >= asked_at_4_stages
     assert ops.BWD_STAGES == 4 and ops._bwd_stages(ops.BWD_ROWS, 6144, 4) == 3
     assert 2 * per_stage + 32 <= ops.SMEM_BYTES  # 3 stages, by Triton's count
+
+
+# ------------------------------------------- rmsnorm: external statistic
+@pytest.mark.parametrize("rows,d,parts", [(8, 64, 2), (6, 2048, 8)])
+def test_rmsnorm_external_statistic_is_rmsnorm_both_ways(rows, d, parts):
+    """B3a's external-statistic mode, its rows' columns cut into ``parts``
+    ranks' shares whose statistics are summed: B3a's forward and backward
+    (and with one part and the local statistic, exactly B3a's function),
+    and the forward the Pallas kernel's."""
+    from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref, rmsnorm_ext_bwd_ref,
+                                                 rmsnorm_ext_ref, rmsnorm_ref, row_stat_ref)
+
+    rng = np.random.default_rng(rows * d + parts)
+    x, xt = _pair(rng.standard_normal((rows, d)) * 3.0, "float32")
+    w, wt = _pair(rng.standard_normal((d,)) * 0.1, "float32")
+    dyt = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    n = d // parts
+    cols = [slice(i * n, (i + 1) * n) for i in range(parts)]
+    ss = sum(row_stat_ref(xt[:, c]) for c in cols)
+    c_tot = sum(row_stat_ref(xt[:, c], dyt[:, c], wt[c]) for c in cols)
+    out = torch.cat([rmsnorm_ext_ref(xt[:, c], wt[c], ss, d) for c in cols], -1)
+    grads = [rmsnorm_ext_bwd_ref(dyt[:, c], xt[:, c], wt[c], ss, c_tot, d) for c in cols]
+    dx, dw = torch.cat([g[0] for g in grads], -1), torch.cat([g[1] for g in grads])
+    rdx, rdw = rmsnorm_bwd_ref(dyt, xt, wt)
+    assert _maxerr(out.numpy(), rmsnorm_ref(xt, wt).numpy()) < 1e-5
+    assert _maxerr(out.numpy(), _f32(jax_rmsnorm(x, w))) < TOL["float32"]
+    assert _maxerr(dx.numpy(), rdx.numpy()) < 1e-5
+    assert _maxerr(dw.numpy(), rdw.numpy()) < 1e-5
+    one = rmsnorm_ext_ref(xt, wt, row_stat_ref(xt), d)
+    assert _maxerr(one.numpy(), rmsnorm_ref(xt, wt).numpy()) < 1e-6
+    # a norm over one rank's columns alone is another function
+    alone = torch.cat([rmsnorm_ref(xt[:, c], wt[c]) for c in cols], -1)
+    assert _maxerr(alone.numpy(), out.numpy()) > 1e-3
+
+
+def test_split_rmsnorm_autograd_matches_rmsnorm():
+    """``rmsnorm_split`` with one rank (``reduce`` a no-op) is B3a, both
+    ways, through autograd."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_split
+
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(5, 96, generator=g) * 2).requires_grad_(True)
+    w = (torch.randn(96, generator=g) * 0.1).requires_grad_(True)
+    dy = torch.randn(5, 96, generator=g)
+    gx, gw = torch.autograd.grad(rmsnorm_split(x, w, 1e-6, 96, lambda t: None), (x, w), dy)
+    x2, w2 = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    rx, rw = torch.autograd.grad(rmsnorm(x2, w2, 1e-6), (x2, w2), dy)
+    assert _maxerr(gx.numpy(), rx.numpy()) < 1e-5 and _maxerr(gw.numpy(), rw.numpy()) < 1e-5

@@ -133,7 +133,7 @@ FAKE_SCRIPT = textwrap.dedent(
     torch.set_num_threads(1)
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig, reduced
+    from repro_torch.configs.base import SSMConfig, ShapeConfig, reduced
     from repro_torch.distributed.context import DistContext
     from repro_torch.launch import dryrun
     from repro_torch.launch.op_analysis import OpAnalysis
@@ -167,14 +167,23 @@ FAKE_SCRIPT = textwrap.dedent(
     # smoke cells at a head dim the kernels have (64); 24 q heads over one kv
     # head give 6 a rank at model 4: G 6, an instance B1 lacks
     h64 = dict(head_dim=64, param_dtype="bfloat16", compute_dtype="bfloat16")
+    # SSD heads of 64 (B4's instance) at d_model 128: 4 heads, one a rank
+    ssm = dict(d_model=128, ssm=SSMConfig(d_state=64, head_dim=64, expand=2, n_groups=1,
+                                          conv_width=4, chunk=64))
     cells = {
         "dense": reduced(get_config("h2o-danube-1.8b"), **h64),
         "moe": reduced(get_config("granite-moe-3b-a800m"), **h64),
+        "ssm": reduced(get_config("mamba2-370m"), **h64, **ssm),
+        "hybrid": reduced(get_config("zamba2-1.2b"), **h64, **ssm),
+        "encdec": reduced(get_config("whisper-large-v3"), **h64),
         "g6": reduced(get_config("granite-34b"), n_heads=24, n_kv_heads=1, **h64),
     }
+    shapes = {"dense": (train, prefill, decode), "moe": (train, prefill, decode),
+              "ssm": (train, decode), "hybrid": (decode,), "encdec": (train, decode),
+              "g6": (train,)}
     out["cells"] = {}
     for name, cfg in cells.items():
-        for shape in (train, prefill, decode) if name != "g6" else (train,):
+        for shape in shapes[name]:
             r = dryrun.cell_record(name, shape.name, cfg=cfg, shape=shape, mesh=mesh, save=False)
             out["cells"][f"{name}|{shape.name}"] = r
     with open(sys.argv[1], "w") as fh:
@@ -343,13 +352,43 @@ def test_run_cell_is_ok_for_dense_and_moe(sides, cell):
     assert r["kernel_substitution"]["measured_scan_bytes"] > 0
 
 
-@pytest.mark.parametrize("family", ["dense", "moe"])
-def test_run_cell_decode_fails_where_sharded_decode_raises(sides, family):
+def _ok_cell(port, cell):
+    r = port["cells"][cell]
+    assert r["status"] == "OK", r.get("error")
+    a = r["op_analysis"]
+    assert a["flops"] > 0 and a["hbm_bytes"] > 0
+    assert a["collective_per_axis"].get("model", 0) > 0
+    m = r["memory"]
+    assert m["peak_per_device"] >= m["argument_bytes"] > 0 and m["fits_80GB"]
+    return {k: v["launches"] for k, v in a["kernels"].items()}
+
+
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid", "encdec"])
+def test_run_cell_decode_is_ok_on_a_split_cache(sides, family):
+    # (data 2, model 4), batch 4 and a 64-slot cache: 16 slots a rank (the
+    # whisper cross cache's 16 frames, 4); the SSM heads one a rank
     _, port = sides
-    r = port["cells"][f"{family}|decode"]
-    assert r["status"] in ("OK", "FAIL")
-    if r["status"] == "FAIL":
-        assert r["error"] == "NotImplementedError: sharded decode is not ported yet"
+    launches = _ok_cell(port, f"{family}|decode")
+    assert launches["rmsnorm"] > 0
+    if family != "ssm":  # B2's partial mode on every attention layer's slots
+        assert launches["decode_attention_partial"] > 0
+        assert "decode_attention" not in launches
+    if family in ("ssm", "hybrid"):  # the gate norm over the heads' split
+        assert launches["rmsnorm_stat"] > 0 and launches["rmsnorm_ext"] > 0
+
+
+@pytest.mark.parametrize("family", ["ssm", "encdec"])
+def test_run_cell_train_is_ok_for_ssm_and_encdec(sides, family):
+    _, port = sides
+    launches = _ok_cell(port, f"{family}|train")
+    assert launches["rmsnorm"] > 0 and launches["rmsnorm_bwd"] > 0
+    if family == "ssm":  # B4 on the local heads, the gate norm both ways
+        assert launches["ssd_scan"] > 0 and launches["ssd_scan_bwd"] > 0
+        assert launches["rmsnorm_ext"] > 0 and launches["rmsnorm_ext_bwd"] > 0
+        # one row statistic for each of them
+        assert launches["rmsnorm_stat"] == launches["rmsnorm_ext"] + launches["rmsnorm_ext_bwd"]
+    else:
+        assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
 
 
 def test_run_cell_fails_with_the_missing_instance(sides):
@@ -364,9 +403,10 @@ def test_run_cell_fails_with_the_missing_instance(sides):
 def _counts():
     fa, norm, ssd = (flash_attention.ops.flash_attention, rmsnorm.ops.rmsnorm,
                      ssd_scan.ops.ssd)
-    return (decode_attention.ops.decode_attention.launches, fa.launches, fa.backward_launches,
-            norm.launches, norm.backward_launches, norm.residual_launches, ssd.launches,
-            ssd.backward_launches)
+    da = decode_attention.ops.decode_attention
+    return (da.launches, da.partial_launches, fa.launches, fa.backward_launches,
+            norm.launches, norm.backward_launches, norm.residual_launches, norm.stat_launches,
+            norm.ext_launches, norm.ext_backward_launches, ssd.launches, ssd.backward_launches)
 
 
 
@@ -395,6 +435,13 @@ def _case(name):
         pk = torch.arange(24, dtype=torch.int32)[None].expand(2, 24).contiguous()
         return (lambda dev: [da.decode_attention(*(t.to(dev) for t in (q, kc, kc, pq, pk)))],
                 da.cost(2, 24, 8, 2, 64, 2 * 24))
+    if name == "decode_attention_partial":  # a rank's 3 slots of a split cache
+        q, kc = rnd(2, 1, 8, 64, dtype=bf), rnd(2, 3, 2, 64, dtype=bf)
+        pq = torch.full((2,), 23, dtype=torch.int32)
+        pk = torch.arange(6, 9, dtype=torch.int32)[None].expand(2, 3).contiguous()
+        return (lambda dev: list(da.decode_attention_partial(
+            *(t.to(dev) for t in (q, kc, kc, pq, pk)))),
+            da.cost(2, 3, 8, 2, 64, 2 * 3, partial=True))
     if name.startswith("rmsnorm"):
         x, r, w = rnd(6, 128, dtype=bf), rnd(6, 128, dtype=bf), rnd(128, dtype=bf)
         if name == "rmsnorm":
@@ -402,8 +449,19 @@ def _case(name):
         if name == "rmsnorm_residual":
             return (lambda dev: list(rn.rmsnorm(x.to(dev), w.to(dev), residual=r.to(dev))),
                     rn.cost(6, 128, residual=True))
-        return (lambda dev: rn.rmsnorm_bwd(r.to(dev), x.to(dev), w.to(dev)),
-                rn.cost(6, 128, backward=True))
+        if name == "rmsnorm_bwd":
+            return (lambda dev: rn.rmsnorm_bwd(r.to(dev), x.to(dev), w.to(dev)),
+                    rn.cost(6, 128, backward=True))
+        ss, c = torch.rand(6, generator=g) * 256 + 1, torch.randn(6, generator=g)
+        if name == "rmsnorm_stat":
+            return (lambda dev: [rn.row_stat(x.to(dev), r.to(dev), w.to(dev))],
+                    rn.stat_cost(6, 128, with_dy=True))
+        if name == "rmsnorm_ext":  # rows of 256, this rank's 128 columns
+            return (lambda dev: [rn.rmsnorm_ext(x.to(dev), w.to(dev), ss.to(dev), 256)],
+                    rn.ext_cost(6, 128))
+        return (lambda dev: list(rn.rmsnorm_ext_bwd(
+            r.to(dev), x.to(dev), w.to(dev), ss.to(dev), c.to(dev), 256)),
+            rn.ext_cost(6, 128, backward=True))
     x, dA, B, C = rnd(2, 64, 4, 64), -rnd(2, 64, 4).abs(), rnd(2, 64, 1, 128), rnd(2, 64, 1, 128)
     if name == "ssd_scan":
         return (lambda dev: sd.ssd(*(t.to(dev) for t in (x, dA, B, C)), 32),
@@ -417,8 +475,9 @@ def _case(name):
     return grads, sd.bwd_cost(2, 64, 4, 64, 128, 1, 32, False, False)
 
 
-KERNELS = ["flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm",
-           "rmsnorm_residual", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd"]
+KERNELS = ["flash_attention", "flash_attention_bwd", "decode_attention",
+           "decode_attention_partial", "rmsnorm", "rmsnorm_residual", "rmsnorm_bwd",
+           "rmsnorm_stat", "rmsnorm_ext", "rmsnorm_ext_bwd", "ssd_scan", "ssd_scan_bwd"]
 
 
 @pytest.mark.parametrize("name", KERNELS)

@@ -237,8 +237,9 @@ def sweep_rmsnorm(torch, timer, gen, emit, which):
         for tile, warps in itertools.product((1, 2, 4, 8), (2, 4, 8)):
             def run():
                 kernel.rmsnorm_kernel[(-(-rows // tile),)](
-                    x, x, w, out, out, x.stride(0), x.stride(0), out.stride(0), out.stride(0),
-                    rows, d, 1e-6, HAS_RESIDUAL=False, ROWS=tile, BLOCK_A=a, BLOCK_B=bb,
+                    x, x, w, out, out, x, x.stride(0), x.stride(0), out.stride(0),
+                    out.stride(0), rows, d, d, 1e-6, HAS_RESIDUAL=False, EXT_STAT=False,
+                    ROWS=tile, BLOCK_A=a, BLOCK_B=bb,
                     num_warps=warps)
             try:
                 run()
@@ -265,8 +266,9 @@ def sweep_rmsnorm(torch, timer, gen, emit, which):
 
             def run():
                 kernel.rmsnorm_bwd_kernel[(n_prog,)](
-                    x, w, dy, dx, part, x.stride(0), dy.stride(0), dx.stride(0),
-                    rows, per_prog, d, 1e-6, ROWS=tile, BLOCK_A=a, BLOCK_B=bb, STAGES=stages,
+                    x, w, dy, dx, part, x, x, x.stride(0), dy.stride(0), dx.stride(0),
+                    rows, per_prog, d, d, 1e-6, EXT_STAT=False, ROWS=tile, BLOCK_A=a,
+                    BLOCK_B=bb, STAGES=stages,
                     num_warps=warps)
                 kernel.rmsnorm_dw_kernel[(-(-d // 128),)](
                     part, dw, n_prog, d, BLOCK_P=32, BLOCK_C=128, num_warps=4)
