@@ -33,7 +33,8 @@ Phases, each of which must pass (any failure exits non-zero):
                 then the scale, both ways) at mamba2-370m's gate-norm rows;
                 h2o-danube's phase 12 case runs the forward only, as its path
                 does; granite-34b's G 48 runs both ways at its serve and its
-                training shape (phase 13);
+                training shape (phase 13), and so do one rank's heads of it at
+                model 8 (G 6) and model 4 (G 12), B2 at G 6 and G 12 too;
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -73,9 +74,10 @@ Phases, each of which must pass (any failure exits non-zero):
                 other's and a direct engine's.  Every plain version raises
                 while the CUs run.  CU times are broken down (queue, stage-in,
                 restore, step loop, encode and write, publish);
-  8. moe     -- granite-moe-3b-a800m at every published width and depth (32
-                layers of 40 experts top-8, 24/8 heads: GQA group 3; bf16,
-                random weights from --seed) served from checkpoint DU files by
+  8. moe     -- granite-moe-3b-a800m at every published width (40 experts
+                top-8, 24/8 heads: GQA group 3; bf16, random weights from
+                --seed), cut of depth only to MOE_SERVE_LAYERS (16 of its 32)
+                for the script's time, served from checkpoint DU files by
                 DecodeEngine, once on the bf16 KV cache and once on the int8
                 one: 4 prompts of 256 tokens plus 24 new, max_len 512.  Every
                 plain version raises; the launches of B2, B3a and B1 are exact.
@@ -126,7 +128,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 and the launches exact; then, cut to DENSE_REMAT_LAYERS, the
                 remat gradients must equal those without within one bf16 ulp
                 of each leaf's max, and at 1 layer in fp32 every gradient leaf
-                must be within SSM_PLAIN_GRAD_TOL of the plain versions';
+                must be within SSM_PLAIN_GRAD_TOL of the plain versions'; then
+                one layer's attention (layer 0's projections of a random input
+                at phase 5's batch) for heads 0-5 and 0-11 over the one kv head
+                (the G 6 and G 12 a rank holds at model 8 and model 4): out,
+                lse and dQ must equal the G 48 run's heads bit for bit, dK and
+                dV are held to the plain version by B1's rounding gate;
  14. dist-train -- the distributed layer (``repro_torch.distributed``) on
                 the card: a one-rank NCCL process group and a (data 1,
                 model 1) mesh; granite-moe-3b-a800m at every published
@@ -162,10 +169,14 @@ Phases, each of which must pass (any failure exits non-zero):
                 measured s/step; phase 5's step, run once more on the card
                 under the analyser, must count the FLOPs, bytes and launches
                 of its meta run exactly; and DRYRUN_CELLS (granite-moe-3b-a800m
-                and mamba2-370m x train_4k, gemma3-1b x decode_32k) each run
-                as ``python -m repro_torch.launch.dryrun`` on the fake
-                256-rank production mesh in a process that sees no card, and
-                must be OK, their peaks under 80 GB, within DRYRUN_TIMEOUT_S;
+                and mamba2-370m x train_4k, gemma3-1b x decode_32k on the
+                256-rank pod mesh; granite-34b x train_4k and prefill_32k on it
+                and on the 512-rank multi-pod mesh) each run as ``python -m
+                repro_torch.launch.dryrun`` on the fake production mesh in a
+                process that sees no card, started at a lower CPU priority
+                before phase 9 (they run beside phases 9-15), and must be OK,
+                their peaks under 80 GB, within DRYRUN_TIMEOUT_S of phase 15's
+                wait;
  16. report  -- one ``{"kernels": [...]}`` JSON line, then as the last line
                 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds torch.profiler breakdowns of eight decode steps (of each
@@ -254,8 +265,12 @@ PILOT_HOST_COPIES = 7
 PILOT_SERVE_PROMPT_LEN, PILOT_SERVE_NEW_TOKENS, PILOT_SERVE_MAX_LEN = 16, 8, 64
 PILOT_TIMEOUT_S = 900.0
 
-# phase 8: granite-moe-3b-a800m served on the bf16 and the int8 KV cache
+# phase 8: granite-moe-3b-a800m served on the bf16 and the int8 KV cache, cut
+# of depth only to MOE_SERVE_LAYERS of its 32 layers (its host-bound decode
+# loops made room for phase 3's G 6 / G 12 cases and phase 15's granite-34b
+# cells; None: every layer)
 MOE_MODEL = "granite-moe-3b-a800m"
+MOE_SERVE_LAYERS = 16
 MOE_PROMPT_LEN, MOE_NEW_TOKENS, MOE_MAX_LEN, MOE_BATCH = 256, 24, 512, 4
 MOE_CHECK_POSITIONS = (0, 127, 255, 278)  # the engine decodes positions 0-278
 MOE_INT8_LOGIT_TOL = 0.05  # tests/test_moe_blocked.py's bound on the int8 cache
@@ -293,6 +308,12 @@ FLASH_CASES = [
     ("h2o-danube serve forward", 4, 544, 32, 8, 80, True, 4096),
     ("granite-34b forward", 4, 280, 48, 1, 128, True, None),  # G 48, both ways
     ("granite-34b train", 2, 8192, 48, 1, 128, True, None),  # phase 13's, G 48
+    # one rank's heads of granite-34b at model 8 (G 6) and model 4 (G 12):
+    # phase 12's serve shape and phase 13's training batch
+    ("granite-34b forward, G 6", 4, 280, 6, 1, 128, True, None),
+    ("granite-34b forward, G 12", 4, 280, 12, 1, 128, True, None),
+    ("granite-34b train, G 6", 2, 8192, 6, 1, 128, True, None),
+    ("granite-34b train, G 12", 2, 8192, 12, 1, 128, True, None),
 ]
 # cases whose path runs no backward: they are checked and timed forward only
 FLASH_FORWARD_ONLY = ("h2o-danube serve forward",)
@@ -303,6 +324,11 @@ FLASH_FP32_CASES = [
     # granite-34b's serve and training shapes (phases 12 and 13)
     ("fp32 granite-34b forward", 4, 280, 48, 1, 128, True, None),
     ("fp32 granite-34b train", 2, 8192, 48, 1, 128, True, None),
+    # and one rank's heads at model 8 and model 4
+    ("fp32 granite-34b forward, G 6", 4, 280, 6, 1, 128, True, None),
+    ("fp32 granite-34b forward, G 12", 4, 280, 12, 1, 128, True, None),
+    ("fp32 granite-34b train, G 6", 2, 8192, 6, 1, 128, True, None),
+    ("fp32 granite-34b train, G 12", 2, 8192, 12, 1, 128, True, None),
 ]
 # RMSNorm forward: (rows, D).  gemma3-1b's width (4 rows: a decode step at
 # batch 4), then phase 6's: mamba2-370m's d_model 1024 and gate norm 2048,
@@ -355,6 +381,13 @@ DECODE_CASES = [
     ("h2o-danube ring wrapped", 4, 4096, 32, 8, 80, 4096, 4700),
     ("granite-34b", 4, 1024, 48, 1, 128, None, 279),
     ("granite-34b", 8, 1024, 48, 1, 128, None, 279),
+    # one rank's heads of granite-34b at model 8 (G 6) and model 4 (G 12):
+    # no path reaches them yet (the sharded decode gathers q over the heads'
+    # split and runs G 48), so phase 3 alone holds them
+    ("granite-34b G 6", 4, 1024, 6, 1, 128, None, 279),
+    ("granite-34b G 6", 8, 1024, 6, 1, 128, None, 279),
+    ("granite-34b G 12", 4, 1024, 12, 1, 128, None, 279),
+    ("granite-34b G 12", 8, 1024, 12, 1, 128, None, 279),
 ]
 # SSD chunk scan: (label, B, S, H, P, N, G, dtype, initial state); the timed
 # cases are the mamba2 prefill and the phase 6 forwards, the edge cases are
@@ -431,6 +464,9 @@ DENSE_TRAIN_MODEL = "granite-34b"
 DENSE_TRAIN_LAYERS = 4
 DENSE_REMAT_LAYERS = 2
 DENSE_PLAIN_SEQ = 1024
+# and one layer's attention for the q heads one rank holds at model 8 and
+# model 4 (granite-34b's 48 heads: G 6 and G 12) against all 48
+RANK_LOCAL_GROUPS = (6, 12)
 
 # phase 11: SSM_MODELS trained at every width and depth on train_4k's
 # sequence length (repro/configs/base.py), cut from its 256 sequences to 4
@@ -464,12 +500,18 @@ DIST_SSM_GRAD_LAYERS, DIST_SSM_GRAD_SEQ, DIST_SSM_GRAD_TOL = 2, 1024, 1e-4
 DIST_DECODE_MODEL = "gemma3-1b"
 DIST_DECODE_LAYERS = 6
 
-# phase 15: the production cells run in subprocesses on the fake 256-rank
-# mesh, without a card, within DRYRUN_TIMEOUT_S; each predicted train-step
-# peak within DRYRUN_PEAK_TOL of the one its phase measured
-DRYRUN_CELLS = [("granite-moe-3b-a800m", "train_4k"), ("mamba2-370m", "train_4k"),
-                ("gemma3-1b", "decode_32k")]
+# phase 15: the production cells (arch, shape, on the 512-rank multi-pod
+# mesh rather than the 256-rank pod mesh) run in subprocesses on the fake
+# mesh, without a card, started before phase 9 at a lower CPU priority than
+# this process; phase 15 waits at most DRYRUN_TIMEOUT_S for them.  granite-34b's
+# cells take B1 at G 6 (model 8 on both meshes).  Each trained cell's
+# predicted step peak is within DRYRUN_PEAK_TOL of the one its phase measured
+DRYRUN_CELLS = [("granite-moe-3b-a800m", "train_4k", False), ("mamba2-370m", "train_4k", False),
+                ("gemma3-1b", "decode_32k", False),
+                ("granite-34b", "train_4k", False), ("granite-34b", "prefill_32k", False),
+                ("granite-34b", "train_4k", True), ("granite-34b", "prefill_32k", True)]
 DRYRUN_TIMEOUT_S = 120.0
+DRYRUN_NICE = 10  # the cells' CPU priority below this process's
 DRYRUN_PEAK_TOL = 0.10
 
 SSM_REMAT_LAYERS = 4
@@ -2460,12 +2502,13 @@ def phase_pilot_serve(torch, seed, smi):
 
 # ------------------------------------------------------------ phase 8
 def phase_moe(torch, seed, smi, profile: bool = False):
-    """MOE_MODEL served from checkpoint files on the bf16 and the int8 KV
-    cache, every plain version refused; decode logits against the drop-free
-    teacher-forced forward (capacity factor E / k, capacity T): decode at
-    MOE_BATCH tokens never drops (an expert takes at most 4 <= 8 tokens), so
-    that forward computes decode's function.  The forward at the published
-    capacity factor logs how many (token, expert) pairs it drops."""
+    """MOE_MODEL, cut to MOE_SERVE_LAYERS, served from checkpoint files on
+    the bf16 and the int8 KV cache, every plain version refused; decode
+    logits against the drop-free teacher-forced forward (capacity factor E /
+    k, capacity T): decode at MOE_BATCH tokens never drops (an expert takes at
+    most 4 <= 8 tokens), so that forward computes decode's function.  The
+    forward at the published capacity factor logs how many (token, expert)
+    pairs it drops."""
     import dataclasses
 
     import numpy as np
@@ -2476,7 +2519,8 @@ def phase_moe(torch, seed, smi, profile: bool = False):
     from repro_torch.models.layers import unembed
     from repro_torch.serving import DecodeEngine
 
-    cfg = get_config(MOE_MODEL)
+    full = get_config(MOE_MODEL)
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS or full.n_layers)
     m = cfg.moe
     api = build_model(cfg, device=DEVICE)
     recorded = {}
@@ -2500,7 +2544,8 @@ def phase_moe(torch, seed, smi, profile: bool = False):
     n_params = sum(t.numel() for _, t in flatten_tree(params))
     sync(torch)
     load_s = time.perf_counter() - t0
-    log(f"moe: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+    log(f"moe: {cfg.name} ({cfg.n_layers} of its {full.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads of {cfg.head_dim_} (GQA group {cfg.n_heads // cfg.n_kv_heads}), "
         f"{m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff_expert}, vocab {cfg.vocab_size}, "
         f"{n_params / 1e9:.3f} B params) through {n_bytes / 2**30:.2f} GiB of checkpoint files "
@@ -3175,13 +3220,75 @@ def dense_train_checks(torch, seed, cfg, batch) -> dict:
                 plain_max_rel_diff=pworst, plain_worst_leaf=pworst_path)
 
 
+def rank_local_attention(torch, seed, cfg, attn) -> dict:
+    """One layer's attention at phase 5's batch, its q, k and v layer 0's
+    projections (``attn``: its q, k, v weights) of a random input, roped:
+    B1 forward and backward over all the heads (G 48), then over heads 0..g-1
+    alone for each g of RANK_LOCAL_GROUPS (the q heads one rank holds at
+    model 48 / g) against the same kv head.  A row's work over the key tiles
+    does not depend on how the rows are packed into query tiles, so out, lse
+    and dQ must equal the G 48 run's heads bit for bit; dK and dV sum over
+    other heads and are held to the fp32 plain version by B1's rounding gate
+    (``check_rounded``)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, kernel_key_tile
+    from repro_torch.models.layers import apply_rope, dense, rope_frequencies
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    b, s, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.head_dim_
+    dtype = attn["q"]["w"].dtype  # the model's: bf16
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=DEVICE).to(dtype)
+    pos = torch.arange(s, device=DEVICE, dtype=torch.int32)[None].expand(b, s)
+    rope = rope_frequencies(hd, pos, cfg.rope_theta)
+    with torch.no_grad():
+        q, k = (apply_rope(dense(x, attn[n]).reshape(b, s, -1, hd), *rope) for n in ("q", "k"))
+        v = dense(x, attn["v"]).reshape(b, s, -1, hd)
+    del x
+    dout = torch.randn(q.shape, generator=gen, device=DEVICE).to(dtype)
+    out, lse = ops.flash_attention_fwd(q, k, v)
+    dq, _, _ = ops.flash_attention_bwd(q, k, v, out, lse, dout)
+    sync(torch)
+    res = {}
+    for g in RANK_LOCAL_GROUPS:
+        ql, dl = q[:, :, :g], dout[:, :, :g]  # a rank's heads: strided views
+        o, l = ops.flash_attention_fwd(ql, k, v)
+        gq, gk, gv = ops.flash_attention_bwd(ql, k, v, o, l, dl)
+        sync(torch)
+        same = {n: bool(torch.equal(a, ref)) for n, a, ref in (
+            ("out", o, out[:, :, :g]), ("lse", l, lse[:, :g]), ("dq", gq, dq[:, :, :g]))}
+        if DEVICE == "cuda" and not all(same.values()):
+            diff = {n: (a.float() - ref.float()).abs().max().item() for n, a, ref in (
+                ("out", o, out[:, :, :g]), ("lse", l, lse[:, :g]), ("dq", gq, dq[:, :, :g]))}
+            raise AssertionError(f"rank-local G {g}: not the G 48 run's heads bit for bit: "
+                                 f"{same}, max |diff| {diff}")
+        f32 = [t.float() for t in (ql, k, v, o, dl)]
+        refs = flash_attention_bwd_ref(*f32[:3], f32[3], l, f32[4])
+        refs_p = flash_attention_bwd_ref(*f32[:3], f32[3], l, f32[4], p_dtype=torch.bfloat16,
+                                         block_k=kernel_key_tile(hd))
+        del f32
+        gates = {}
+        for n, got, ref, ref_p in (("dk", gk, refs[1], refs_p[1]), ("dv", gv, refs[2], refs_p[2])):
+            err, row, mean = check_rounded(f"rank-local G {g} {n}", got, ref, ref_p)
+            gates[n] = dict(max_abs_err=err, row_ratio=row, mean_ratio=mean)
+        del refs, refs_p, o, l, gq, gk, gv
+        res[f"G {g}"] = dict(bit_equal=same, **gates)
+        log(f"dense-train: rank-local attention, heads 0-{g - 1} of 48 over the kv head (G {g}) "
+            f"on {b} x {s} tokens: out, lse and dQ equal to the G 48 run's heads bit for bit: "
+            f"{same}; dK / dV within the rounding gate, row/mean ratios "
+            + ", ".join(f"{n} {v['row_ratio']:.3f}/{v['mean_ratio']:.3f}"
+                        for n, v in gates.items()) + " (pass <= 1)")
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
 def phase_dense_train(torch, seed, smi, profile: bool = False):
     """DENSE_TRAIN_MODEL at every published width, cut to DENSE_TRAIN_LAYERS
     layers, its weights drawn on the card from ``seed``, trained on phase 5's
     batch and schedule with AdamW state on the device, every plain version
     refused and the launches exact (B1 both ways at G 48, B3a both ways at
     d_model 6144); then the remat and plain-version checks.  Returns
-    (launches, summary)."""
+    (launches, summary); then the rank-local attention check."""
     import dataclasses
 
     from repro_torch.checkpoint import flatten_tree
@@ -3207,11 +3314,13 @@ def phase_dense_train(torch, seed, smi, profile: bool = False):
     if profile:
         out["profile_step_s"] = phase_profile_train(torch, params, opt, batch, train_step,
                                                     "dense-train")
+    attn = {n: {"w": w["w"][0].clone()} for n, w in params["groups"]["pos0"]["attn"].items()}
     del params, opt, train_step
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     out.update(layers=cfg.n_layers, params=n_params,
-               checks=dense_train_checks(torch, seed, full, batch))
+               checks=dense_train_checks(torch, seed, full, batch),
+               rank_local=rank_local_attention(torch, seed, cfg, attn))
     return launches, out
 
 
@@ -3638,30 +3747,39 @@ def dryrun_cells(measured: dict) -> list:
             + [("dense-train", dense, TRAIN_BATCH, TRAIN_SEQ, measured["dense-train"])])
 
 
-def start_production_cell(tmp: Path, arch: str, shape: str):
+def cell_dir(tmp: Path, arch: str, shape: str, multi_pod: bool) -> Path:
+    return tmp / f"{arch}__{shape}__{'multipod' if multi_pod else 'pod'}"
+
+
+def start_production_cell(tmp: Path, arch: str, shape: str, multi_pod: bool):
     """The dry run of one cell as a user starts it, in a process that sees
-    no card; its records go under ``tmp``."""
+    no card; its records go under ``cell_dir``."""
     path = [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(path))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(path),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-           "--out", str(tmp)]
+           "--out", str(cell_dir(tmp, arch, shape, multi_pod))] + (
+               ["--multi-pod"] if multi_pod else [])
     return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), time.perf_counter()
+                            stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=lambda: os.nice(DRYRUN_NICE)), time.perf_counter()
 
 
-def finish_production_cell(proc, t0: float, tmp: Path, arch: str, shape: str) -> dict:
-    """A production cell's record: it must be OK within DRYRUN_TIMEOUT_S,
-    its peak under the card's memory."""
+def finish_production_cell(proc, t0: float, tmp: Path, arch: str, shape: str,
+                           multi_pod: bool) -> dict:
+    """A production cell's record: it must be OK within DRYRUN_TIMEOUT_S
+    of this wait, its peak under the card's memory."""
     from repro_torch.launch import roofline
 
     try:
-        out, _ = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise AssertionError(f"dryrun: {arch} x {shape} took more than {DRYRUN_TIMEOUT_S} s")
-    wall = time.perf_counter() - t0
-    paths = list(tmp.glob(f"*/{arch}__{shape}.json"))
+        raise AssertionError(f"dryrun: {arch} x {shape} still ran {DRYRUN_TIMEOUT_S} s into "
+                             "phase 15")
+    wall = time.perf_counter() - t0  # from its start, beside the earlier phases
+    paths = list(cell_dir(tmp, arch, shape, multi_pod).glob(f"*/{arch}__{shape}.json"))
     if proc.returncode != 0 or len(paths) != 1:
         raise AssertionError(f"dryrun: {arch} x {shape} exited {proc.returncode}:\n{out[-4000:]}")
     cell = json.loads(paths[0].read_text())
@@ -3670,12 +3788,13 @@ def finish_production_cell(proc, t0: float, tmp: Path, arch: str, shape: str) ->
         raise AssertionError(f"dryrun: {arch} x {shape} on {cell['mesh']}: {cell}")
     kernels = {k: v["launches"] for k, v in cell["op_analysis"]["kernels"].items()}
     log(f"dryrun: {arch} x {shape} on the fake {cell['mesh']} mesh ({cell['n_devices']} ranks), "
-        f"no card visible: OK in {wall:.1f} s, launches a card {kernels}; "
+        f"no card visible: OK, its step's dry run {cell['run_s']:.1f} s (collected {wall:.1f} s "
+        f"after its process started), launches a card {kernels}; "
         f"{cell['memory']['peak_per_device'] / 2**30:.2f} "
         f"GiB a card, modelled step {terms['step_s']:.4f} s ({terms['dominant']}-bound: compute "
         f"{terms['compute_s']:.4f}, memory {terms['memory_s']:.4f}, collective "
         f"{terms['collective_s']:.4f} s), useful {terms['useful_ratio']:.3f}")
-    return dict(cell=f"{arch} x {shape}", mesh=cell["mesh"], wall_s=wall,
+    return dict(cell=f"{arch} x {shape}", mesh=cell["mesh"], wall_s=wall, run_s=cell["run_s"],
                 peak_per_device=cell["memory"]["peak_per_device"], kernels=kernels,
                 terms={k: terms[k] for k in ("compute_s", "memory_s", "collective_s", "step_s",
                                              "dominant", "useful_ratio")})
@@ -3686,16 +3805,16 @@ def production_cells():
     """DRYRUN_CELLS started at once, each as a user runs it in a process that
     sees no card, their records in a temporary directory: yields (the
     processes with their cells, the directory); kills what still runs on
-    the way out.  They need no card and run beside phases 14 and 15."""
+    the way out.  They need no card and run beside phases 9-15, at a lower
+    CPU priority than the phases' host work, one thread each."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [(start_production_cell(Path(tmp), arch, shape), arch, shape)
-                 for arch, shape in DRYRUN_CELLS]
+        procs = [(start_production_cell(Path(tmp), *cell), *cell) for cell in DRYRUN_CELLS]
         try:
             yield procs, Path(tmp)
         finally:
-            for (proc, _), _, _ in procs:
+            for (proc, _), *_ in procs:
                 if proc.poll() is None:
                     proc.kill()
                     proc.communicate()
@@ -3766,8 +3885,8 @@ def phase_dryrun(torch, seed, smi, measured: dict, cells):
             + ("the meta run's, exactly" if same else "not the meta run's (the plain "
                "versions run on the CPU)"))
         out[tag]["card_equal"] = same
-    out["production"] = [finish_production_cell(proc, t_cell, tmp, arch, shape)
-                         for (proc, t_cell), arch, shape in procs]
+    out["production"] = [finish_production_cell(proc, t_cell, tmp, *cell)
+                         for (proc, t_cell), *cell in procs]
     return out
 
 
@@ -3821,28 +3940,29 @@ def main() -> int:
     moe_launches_all, moe_out = phase_moe(torch, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     log(f"moe: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    moe_train_launches, moe_train = phase_moe_train(torch, args.seed, smi, args.profile)
-    torch.cuda.empty_cache()
-    log(f"moe-train: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    whisper_launches, whisper_out = phase_whisper(torch, args.seed, smi, args.profile)
-    torch.cuda.empty_cache()
-    log(f"whisper: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    ssm_train_launches, ssm_train = phase_ssm_train(torch, args.seed, smi, args.profile)
-    torch.cuda.empty_cache()
-    log(f"ssm-train: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dense_launches, dense = phase_dense_serve(torch, args.seed, smi, args.profile)
-    torch.cuda.empty_cache()
-    log(f"dense-serve: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dense_train_launches, dense_train = phase_dense_train(torch, args.seed, smi, args.profile)
-    torch.cuda.empty_cache()
-    log(f"dense-train: {time.perf_counter() - t0:.1f} s")
-    # phase 15's production cells need no card: they run beside phases 14-15
+    # phase 15's production cells need no card: they run beside phases 9-15,
+    # whose host work (but phase 12's and 14's) leaves the CPU mostly idle
     with production_cells() as cells:
+        t0 = time.perf_counter()
+        moe_train_launches, moe_train = phase_moe_train(torch, args.seed, smi, args.profile)
+        torch.cuda.empty_cache()
+        log(f"moe-train: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        whisper_launches, whisper_out = phase_whisper(torch, args.seed, smi, args.profile)
+        torch.cuda.empty_cache()
+        log(f"whisper: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ssm_train_launches, ssm_train = phase_ssm_train(torch, args.seed, smi, args.profile)
+        torch.cuda.empty_cache()
+        log(f"ssm-train: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dense_launches, dense = phase_dense_serve(torch, args.seed, smi, args.profile)
+        torch.cuda.empty_cache()
+        log(f"dense-serve: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dense_train_launches, dense_train = phase_dense_train(torch, args.seed, smi, args.profile)
+        torch.cuda.empty_cache()
+        log(f"dense-train: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         dist_launches, dist_ssm_launches, dist_decode_launches, dist_train = phase_dist_train(
             torch, args.seed, smi, args.profile)

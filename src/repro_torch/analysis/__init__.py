@@ -1,8 +1,11 @@
-"""Runtime analysis for the port's copy of the coordination plane.
+"""Static + runtime analysis for the coordination plane.
 
-Only the lock-order witness (:mod:`repro_torch.analysis.witness`, a copy of
-``repro.analysis.witness``) is here: with ``REPRO_LOCK_WITNESS=1``
-``repro_torch.core.coordination`` creates every store lock through it.  The
-JAX package's static linters of the runtime's source (``model``, ``rules``,
-``pdlint``, ``lockgraph``) have no copy yet.
+``pdlint`` (:mod:`repro_torch.analysis.pdlint`) statically enforces the
+concurrency contracts of the port's sharded store (``src/repro_torch/core``);
+the lock-order witness (:mod:`repro_torch.analysis.witness`) validates the
+static lock graph against real executions when ``REPRO_LOCK_WITNESS=1``.
 """
+
+from .model import Finding, build_project
+
+__all__ = ["Finding", "build_project"]

@@ -46,7 +46,8 @@
 //     online softmax for the tile, and every thread adds p * V for one 16-byte
 //     column chunk over its share of the tile's slots.  A group that is not a
 //     power of two (G 3, granite's 24/8 heads) is reduced as the next one (4),
-//     the extra head's partial 0 and never stored.
+//     the extra head's partial 0 and never stored; G 6 (granite-34b's
+//     heads a rank at model 8) likewise as 8.
 //   * a row of D 80 (h2o-danube-1.8b) is 10 chunks of 16 bytes in bf16 and 20
 //     in fp32.  In shared memory it keeps its own 160 (320) bytes: cp.async
 //     copies only the real chunks.  The lanes are laid out as for the next
@@ -61,10 +62,14 @@
 //     at bf16 D 128: 16 parts of 3 heads, each scoring all 32 slots of a
 //     tile).  The softmax step's warps take heads g, g + kWarps, ...  In p * V
 //     the threads of a column chunk take HT head parts of HPT = G / HT heads
-//     over all (or JP = TPU / HT shares of) the tile's slots.  The fold
-//     through distributed shared memory is unchanged.  At G 48 the block does
-//     about 48 flops per cache byte, above the CUDA cores' ~20 (67 TFLOP/s over
-//     3.35 TB/s): there `mma.sync` for Q K^T and P V would be the lever.
+//     over all (or JP = TPU / HT shares of) the tile's slots.  HG and HT
+//     are the largest powers of two that divide G, up to 16 and the step's
+//     thread groups (`head_parts`): G 12 (granite-34b's heads a rank at model
+//     4) at bf16 D 128 takes 4 parts of 3 heads in both steps, scoring 4
+//     slots at once.  The fold through distributed shared memory is
+//     unchanged.  At G 48 the block does about 48 flops per cache byte,
+//     above the CUDA cores' ~20 (67 TFLOP/s over 3.35 TB/s): there
+//     `mma.sync` for Q K^T and P V would be the lever.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -124,6 +129,14 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The power of two at or above g.
 __host__ __device__ constexpr int pow2_ceil(int g) { return g <= 1 ? 1 : 2 * pow2_ceil((g + 1) / 2); }
+
+// Head parts of a group above kWarps in a step of n thread groups (n a power
+// of two): the largest power of two that divides G, at most min(n, 16), so
+// that the parts split both the group and the step's threads evenly.  G 48
+// takes min(n, 16) parts of G / parts heads; G 12 takes 4 parts of 3.
+__host__ __device__ constexpr int head_parts(int g, int n, int p = 1) {
+  return (2 * p <= n && 2 * p <= 16 && g % (2 * p) == 0) ? head_parts(g, n, 2 * p) : p;
+}
 
 // Sums v[g] over the LPS lanes of a group (LPS a power of two, G <= LPS).  The
 // first log2(G) steps halve the values each lane carries (a lane keeps one
@@ -204,14 +217,15 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(const Params
   constexpr int SPP = kThreads / LPS;     // slot groups of the score step
   constexpr int TPU = kThreads / CHP;     // threads that share a column chunk in p * V
   constexpr bool kSmall = G <= kWarps;    // every thread carries every head
-  constexpr int HG = kSmall ? 1 : (SPP < 16 ? SPP : 16);  // head parts of the score step
+  constexpr int HG = kSmall ? 1 : head_parts(G, SPP);  // head parts of the score step
   constexpr int HPG = G / HG;             // heads a lane scores
   constexpr int SG = SPP / HG;            // slots scored at once
   constexpr int GP = pow2_ceil(HPG);      // heads the score step's reduction carries
-  constexpr int HT = kSmall ? 1 : (TPU < 16 ? TPU : 16);  // head parts of p * V
+  constexpr int HT = kSmall ? 1 : head_parts(G, TPU);  // head parts of p * V
   constexpr int HPT = G / HT;             // heads a thread accumulates
   constexpr int JP = TPU / HT;            // shares of a tile's slots in p * V
-  static_assert(G % HG == 0 && G % HT == 0 && GP <= LPS, "head parts of the group");
+  static_assert(G % HG == 0 && G % HT == 0 && SPP % HG == 0 && TPU % HT == 0 && GP <= LPS,
+                "head parts of the group");
   static_assert(kTile == 32 && kTile % SG == 0 && kTile % JP == 0, "tile shape");
   static_assert(kPosCap / kTile <= 32 && kThreads % kTile == 0, "one warp lists the tiles");
   static_assert(JP * G * D * 4 <= NST * L::kTileBytes, "the p * V partials reuse the stage");
@@ -539,7 +553,9 @@ int dispatch_group(const Request& r, int group) {
     case 2: return run<T, D, 2>(r);
     case 3: return run<T, D, 3>(r);
     case 4: return run<T, D, 4>(r);
+    case 6: return run<T, D, 6>(r);
     case 8: return run<T, D, 8>(r);
+    case 12: return run<T, D, 12>(r);
     case 48: return run<T, D, 48>(r);
     default: return -1;
   }

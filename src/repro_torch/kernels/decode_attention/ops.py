@@ -36,9 +36,10 @@ MIN_SPLIT_LEN = 16
 #: the H100 for zamba2-1.2b's 128 clusters; 3 and 4 no longer fit in one wave)
 BLOCKS_PER_SM = 2
 #: the instances the CUDA source is compiled for (D 80: h2o-danube-1.8b;
-#: G 48: granite-34b's 48 query heads over one kv head)
+#: G 48: granite-34b's 48 query heads over one kv head; G 6 and G 12: its
+#: heads a rank at model 8 and model 4)
 HEAD_DIMS = (64, 80, 128, 256)
-GROUPS = (1, 2, 3, 4, 8, 48)
+GROUPS = (1, 2, 3, 4, 6, 8, 12, 48)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fns = None

@@ -52,6 +52,11 @@
 //     also spreads MQA's one kv head over the card.  Each part writes its
 //     fp32 dK and dV to scratch, and a fold kernel adds the parts in part
 //     order (no atomics: the same bits every call) and rounds to bf16.
+//     G 6 and G 12 (granite-34b's heads a rank at model 8 and 4) fit a tile
+//     whole (5 and 2 positions, 2 and 8 rows spare) but run faster in parts
+//     too: whole, one kv head gives B x Sk / 128 blocks, fewer than the
+//     card's SMs (ops.HEAD_PARTS).  In the forward and dQ tiles they leave 2
+//     and 8 of 128 rows spare (21 and 10 positions), as G 3 does.
 //     Key blocks are the dK/dV grid's slow dimension, so under a causal
 //     mask the blocks with the most query tiles (the first keys) start
 //     first.

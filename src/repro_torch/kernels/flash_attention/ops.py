@@ -22,15 +22,20 @@ from .. import KernelCost, build, count_launch, launch
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 #: the instances the CUDA source is compiled for, both ways (the group is a
-#: runtime argument; G 48 is granite-34b's 48 query heads over one kv head)
+#: runtime argument; G 48 is granite-34b's 48 query heads over one kv head,
+#: G 6 and G 12 its heads a rank at model 8 and model 4)
 HEAD_DIMS = (64, 80, 128, 256)
-GROUPS = (1, 2, 3, 4, 8, 48)
+GROUPS = (1, 2, 3, 4, 6, 8, 12, 48)
 #: the bf16 dK/dV kernel's head parts by group: its 32-row query tiles hold
 #: 32 / (G / P) positions of the G / P heads of one part (G 48: none whole),
 #: each part writes fp32 scratch, and a fold kernel sums the parts in order.
-#: G 48 takes 6 parts of 8 heads, the fastest of P 2-48 at granite-34b's
-#: training shape on the H100 (tools/time_port_kernels.py --sweep b1bwd)
-HEAD_PARTS = {48: 6}
+#: Each group takes the fastest P at granite-34b's training shape
+#: [2, 8192, G/1, 128] on an H100 80GB HBM3 at 700 W
+#: (tools/time_port_kernels.py --sweep b1bwd): G 48 6 parts of 8 heads
+#: (35.39 ms; P 2-48: 35.39-41.50), G 12 6 of 2 (8.44 ms; whole 16.25, P 2-12
+#: 8.44-8.89), G 6 6 of 1 (4.33 ms; whole 7.01, P 2-3 4.44-4.53): whole, the
+#: grid has B x Sk / 128 blocks, fewer than the card's 132 SMs
+HEAD_PARTS = {6: 6, 12: 6, 48: 6}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _Strides = ctypes.c_longlong * 3

@@ -111,7 +111,9 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
                      ("whisper cross", 2, (12, 20), 4, 4, 16, False, None),
                      ("h2o-danube serve forward", 2, 14, 8, 2, 16, True, 8),
                      ("granite-34b forward", 2, 12, 48, 1, 16, True, None),
-                     ("granite-34b train", 2, 24, 48, 1, 16, True, None)],
+                     ("granite-34b train", 2, 24, 48, 1, 16, True, None),
+                     ("granite-34b train, G 6", 2, 24, 6, 1, 16, True, None),
+                     ("granite-34b train, G 12", 2, 24, 12, 1, 16, True, None)],
         FLASH_FP32_CASES=[("fp32 non-causal", 1, 20, 4, 1, 16, False, None),
                           ("fp32 G 48 ragged", 1, 10, 48, 1, 16, True, 4)],
         RMSNORM_CASES=[(4, 64), (40, 128)], RMSNORM_RESIDUAL_CASES=[(4, 64)],
@@ -136,7 +138,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         SSM_SERVE_LAYERS={"tiny-mamba": 2, "tiny-zamba": 7},
         PILOT_TRAIN_LAYERS=None, PILOT_SERVE_PROMPT_LEN=6, PILOT_SERVE_NEW_TOKENS=3,
         PILOT_SERVE_MAX_LEN=16, PILOT_TIMEOUT_S=120.0,
-        MOE_MODEL="tiny-moe", MOE_PROMPT_LEN=10, MOE_NEW_TOKENS=4, MOE_MAX_LEN=16, MOE_BATCH=2,
+        MOE_MODEL="tiny-moe", MOE_SERVE_LAYERS=None, MOE_PROMPT_LEN=10, MOE_NEW_TOKENS=4, MOE_MAX_LEN=16, MOE_BATCH=2,
         MOE_CHECK_POSITIONS=(0, 5, 9, 12), MOE_REMAT_LAYERS=1,
         WHISPER_MODEL="tiny-whisper", WHISPER_PROMPT_LEN=4, WHISPER_NEW_TOKENS=6,
         WHISPER_MAX_LEN=12, WHISPER_BATCH=2, WHISPER_CHECK_POSITIONS=(0, 3, 5, 9),
@@ -161,7 +163,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         DECODE_FOLD_CASE=(2, 64, 4, 1, 16, 50, 8), RMSNORM_EXT_CASES=[(40, 64, 128)],
         # phase 15: the tiny trained cells on meta; the production cells are
         # cheap ones (the script's take ~15-30 s each on a host CPU)
-        DRYRUN_CELLS=[("gemma3-1b", "prefill_32k"), ("gemma3-1b", "decode_32k")],
+        DRYRUN_CELLS=[("gemma3-1b", "prefill_32k", False), ("gemma3-1b", "decode_32k", True)],
         # the plain versions are the CPU path: phase 7 may not refuse them here
         plain_versions_forbidden=contextlib.nullcontext,
         sync=lambda torch: None, phase_device=lambda torch: "cpu, 0 W",
@@ -218,7 +220,14 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
 
     assert cs.main() == 0
-    lines = capsys.readouterr().out.strip().splitlines()
+    text = capsys.readouterr().out
+    lines = text.strip().splitlines()
+    # phase 13's rank-local attention at G 6 and G 12, and phase 15's cells
+    # on both production meshes
+    for heads in ("heads 0-5 of 48 over the kv head (G 6)", "heads 0-11 of 48 over the kv head (G 12)"):
+        assert f"dense-train: rank-local attention, {heads}" in text
+    assert "dryrun: gemma3-1b x prefill_32k on the fake pod_32x8 mesh" in text
+    assert "dryrun: gemma3-1b x decode_32k on the fake multipod_2x32x8 mesh" in text
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
     kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
@@ -260,7 +269,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
     assert [(c["plan"]["n_split"], c["plan"]["split_len"]) for c in dec] == [
         (16, 32), (16, 32), (16, 64), (16, 64), (2, 256), (8, 64), (4, 128), (3, 150), (3, 500),
-        (8, 128), (8, 512), (16, 64), (16, 64)]
+        (8, 128), (8, 512), (16, 64), (16, 64), (16, 64), (16, 64), (16, 64), (16, 64)]
     # moe: two engines (bf16 and int8 caches) of 13 steps over 2 layers, and
     # the drop-free and the published-capacity forwards (a third drop-free
     # one when the int8 engine's tokens differ)
@@ -345,7 +354,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     fwd = [c["case"] for c in kernels["flash_attention"]["cases"]]
     bwd = [c["case"] for c in kernels["flash_attention_bwd"]["cases"]]
     assert "h2o-danube serve forward" in fwd and "h2o-danube serve forward" not in bwd
-    for case in ("h2o-danube train", "granite-34b forward", "granite-34b train"):
+    for case in ("h2o-danube train", "granite-34b forward", "granite-34b train",
+                 "granite-34b train, G 6", "granite-34b train, G 12"):
         assert case in fwd and case in bwd
     assert kernels["ssd_scan_bwd"]["library_ms"] is None
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

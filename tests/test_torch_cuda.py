@@ -39,7 +39,7 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("d", [64, 80, 128, 256])
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 48])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8, 12, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, d, g, dtype):
     from repro_torch.kernels.decode_attention import ops
@@ -351,7 +351,7 @@ def _check_flash(q, k, v, masks):
 
 @pytest.mark.parametrize("s", [77, 333])
 @pytest.mark.parametrize("d", [64, 80, 128, 256])
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8, 12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda, s, d, g, dtype):
     """Forward (out, lse) and backward (dq, dk, dv) at S 77 and 333 (ragged
@@ -458,18 +458,45 @@ def test_flash_backward_at_group_48_matches_plain(cuda, dtype):
                 assert torch.equal(x, y), (b, s, causal, window)
 
 
+@pytest.mark.parametrize("g", [6, 12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_refuses_a_group_without_an_instance(cuda, dtype):
-    """G 6 has no instance in either direction: the backward raises
-    NotImplementedError before any launch."""
+def test_flash_at_rank_groups_matches_plain(cuda, g, dtype):
+    """granite-34b's heads a rank at model 8 (6/1 heads of 128) and model 4
+    (12/1): a slice of its training shape, [1, 2048] causal, and a ragged
+    [1, 100] under every mask, forward and backward through the autograd
+    Function against the plain versions with the launches counted (128-row
+    query tiles of 21 / 10 positions, 2 / 8 rows spare; bf16's dK/dV kernel
+    takes the heads in ``ops.HEAD_PARTS.get(g, 1)`` parts); two backward
+    calls give the same bits."""
     from repro_torch.kernels.flash_attention import ops
 
-    q = torch.zeros(1, 64, 6, 128, device=cuda, dtype=dtype)
+    for b, s, masks in ((1, 2048, [(True, None)]), (1, 100, FLASH_MASKS)):
+        q, k, v = _flash_inputs(cuda, 128, g, dtype, seed=s + g, b=b, s=s, hkv=1)
+        _check_flash(q, k, v, masks)
+        out, lse = ops.flash_attention_fwd(q, k, v, True, None)
+        dout = torch.randn(out.shape, device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(s)).to(dtype)
+        first = ops.flash_attention_bwd(q, k, v, out, lse, dout, True, None)
+        second = ops.flash_attention_bwd(q, k, v, out, lse, dout, True, None)
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y), (b, s, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_refuses_a_group_without_an_instance(cuda, dtype):
+    """G 5 has no instance in either direction: the forward and the
+    backward raise NotImplementedError before any launch."""
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.zeros(1, 64, 5, 128, device=cuda, dtype=dtype)
     k = torch.zeros(1, 64, 1, 128, device=cuda, dtype=dtype)
-    lse = torch.zeros(1, 6, 64, device=cuda)
+    lse = torch.zeros(1, 5, 64, device=cuda)
     before = (ops.flash_attention.launches, ops.flash_attention.backward_launches)
-    with pytest.raises(NotImplementedError, match="group=6"):
+    with pytest.raises(NotImplementedError, match="group=5"):
         ops.flash_attention_bwd(q, k, k, q, lse, q)
+    with pytest.raises(NotImplementedError, match="group=5"):
+        ops.flash_attention_fwd(q, k, k)
     torch.cuda.synchronize()
     assert (ops.flash_attention.launches, ops.flash_attention.backward_launches) == before
 
@@ -1322,34 +1349,56 @@ def test_sharded_train_step_on_card_runs_no_plain_version(cuda, card_mesh, monke
             assert torch.equal(t.full_tensor(), tree_get(ref, path)), path
 
 
-def test_group_12_attention_in_local_map_raises_before_any_launch(cuda, card_mesh):
+def test_group_12_attention_in_local_map_raises_before_any_launch(cuda, card_mesh, monkeypatch):
     """granite-34b at model 4 gives each rank 12 q heads on the one kv
-    head: the flash kernel has no G 12 instance and raises inside the local
-    region before it launches, as it does for G 6; nothing falls back to
-    the plain version.  One card holds one rank, so the local group is
-    built by the heads (12/1) at world 1."""
+    head: the flash kernel's G 12 instance runs inside the local region,
+    one forward launch, and gives the unsharded block's output bit for bit
+    with every plain version refused; a group still without an instance
+    (G 5) raises there before it launches, and nothing falls back to the
+    plain version.  One card holds one rank, so the local group is built by
+    the heads (12/1, 5/1) at world 1."""
     from repro_torch.distributed import DistContext, distribute_tree, distribution, param_specs
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import build_model
     from repro_torch.models.attention import attention_block
     from repro_torch.models.layers import rope_frequencies
 
-    cfg = _card_cfg("granite-34b-smoke", n_heads=12, n_kv_heads=1, head_dim=128)
-    ctx = DistContext(card_mesh, ("data",))
-    params = build_model(cfg, device=cuda).init(seed=0)
-    attn = {k: {"w": v["w"][0]} for k, v in params["groups"]["pos0"]["attn"].items()}
-    specs = param_specs({"groups": {"pos0": {"attn": params["groups"]["pos0"]["attn"]}}}, cfg, ctx)
-    specs = {k: {"w": v["w"][1:]} for k, v in specs["groups"]["pos0"]["attn"].items()}
-    dattn = distribute_tree(attn, specs, ctx)
-    x = torch.randn(2, 64, cfg.d_model, device=cuda).to(torch.bfloat16)
-    dx = distribute_tree({"x": x}, {"x": ("data", None, None)}, ctx)["x"]
-    pos = torch.arange(64, device=cuda, dtype=torch.int32)[None].expand(2, 64)
-    before = (fa_ops.flash_attention.launches, fa_ops.flash_attention.backward_launches)
-    with distribution(ctx), pytest.raises(NotImplementedError, match="group=12"):
-        attention_block(dattn, dx, pos, cfg, causal=True,
-                        rope=rope_frequencies(cfg.head_dim_, pos, cfg.rope_theta))
+    def block(n_heads):
+        cfg = _card_cfg("granite-34b-smoke", n_heads=n_heads, n_kv_heads=1, head_dim=128)
+        ctx = DistContext(card_mesh, ("data",))
+        params = build_model(cfg, device=cuda).init(seed=0)
+        attn = {k: {"w": v["w"][0]} for k, v in params["groups"]["pos0"]["attn"].items()}
+        specs = param_specs({"groups": {"pos0": {"attn": params["groups"]["pos0"]["attn"]}}},
+                            cfg, ctx)
+        specs = {k: {"w": v["w"][1:]} for k, v in specs["groups"]["pos0"]["attn"].items()}
+        dattn = distribute_tree(attn, specs, ctx)
+        x = torch.randn(2, 64, cfg.d_model, device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(n_heads)).to(torch.bfloat16)
+        dx = distribute_tree({"x": x}, {"x": ("data", None, None)}, ctx)["x"]
+        pos = torch.arange(64, device=cuda, dtype=torch.int32)[None].expand(2, 64)
+        kw = dict(causal=True, rope=rope_frequencies(cfg.head_dim_, pos, cfg.rope_theta))
+
+        def run():
+            with distribution(ctx):
+                return attention_block(dattn, dx, pos, cfg, **kw)
+        return run, lambda: attention_block(attn, x, pos, cfg, **kw)
+
+    counts = lambda: (fa_ops.flash_attention.launches, fa_ops.flash_attention.backward_launches)
+    run, unsharded = block(12)
+    _refuse_plain_versions(monkeypatch)
+    ref = unsharded()[0]
+    before = counts()
+    out = run()[0]
     torch.cuda.synchronize()
-    assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.backward_launches) == before
+    assert counts() == (before[0] + 1, before[1])
+    assert torch.equal(out.full_tensor(), ref)
+
+    run, _ = block(5)
+    before = counts()
+    with pytest.raises(NotImplementedError, match="group=5"):
+        run()
+    torch.cuda.synchronize()
+    assert counts() == before
 
 
 # ----------------------------------------------- modes of a split over ranks

@@ -6,7 +6,8 @@ plain PyTorch (split by split, 32-slot tiles, the partials folded in cluster
 rank order).  At the main path's plans it is held against the plain version
 ``decode_attention_ref`` and, where the Pallas kernel can express the mask
 (no wrapped ring), against the Pallas kernel in interpret mode; GQA groups
-1, 3 (granite-moe-3b-a800m), 4 and 48 (granite-34b's MQA), head dims 64,
+1, 3 (granite-moe-3b-a800m), 4, 48 (granite-34b's MQA) and 6 and 12 (its
+heads a rank at model 8 and model 4), head dims 64,
 80 (h2o-danube-1.8b, which the Pallas wrapper pads to 128 itself), 128 and
 256, and a wrapped ring at D 80.
 
@@ -89,6 +90,12 @@ PALLAS_PLANS = [
     # granite-34b's plan and MQA group of 48 at D 128, over two kv heads;
     # splits 5-15 hold only slots past the first query
     ("granite-34b G 48", (4, 1), 2, 1024, 2, 48, 128, None, [279, 800]),
+    # its heads a rank at model 8 (G 6, carried as 8 lanes) and model 4 (G
+    # 12, 4 head parts of 3), at its plan; with a window too
+    ("granite-34b G 6", (4, 1), 4, 1024, 1, 6, 128, None, [279, 800, 0, 1023]),
+    ("granite-34b G 6, window", (4, 1), 2, 1024, 1, 6, 128, 100, [279, 1023]),
+    ("granite-34b G 12", (4, 1), 4, 1024, 1, 12, 128, None, [279, 800, 0, 1023]),
+    ("granite-34b G 12, window", (4, 1), 2, 1024, 1, 12, 128, 100, [279, 1023]),
 ]
 
 

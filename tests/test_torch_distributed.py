@@ -36,7 +36,9 @@ which both read from ``.npz`` files.
   configs): h2o-danube-1.8b and granite-moe-3b-a800m on (data 2, model 2)
   with sequence parallelism on and off, granite-34b (4/1 heads: the one kv
   head replicated, each rank's 2 q heads use it) on (2, 2), h2o-danube-1.8b
-  (4/2 heads) on (1, 4) (rank r's one q head uses kv head r // 2).  Loss,
+  (4/2 heads) on (1, 4) (rank r's one q head uses kv head r // 2), and
+  granite-34b at 24/1 heads on (1, 4) (6 q heads a rank on the replicated
+  kv head: the GQA group 6 that its 48/1 heads give a rank at model 8).  Loss,
   grad_norm, lr, every param and every ``opt/`` leaf (gathered) against
   JAX's step under ``distribution(ctx)``, jitted with the same shardings
   on 4 host devices (``impl="ref"``), and against the port's unsharded
@@ -137,6 +139,9 @@ TRAIN_CASES = [
     ("moe", "granite-moe-3b-a800m-smoke", (2, 2), False),
     ("granite34b-kv-replicated", "granite-34b-smoke", (2, 2), True),
     ("danube-m4-kv-replicated", "h2o-danube-1.8b-smoke", (1, 4), True),
+    # 24/1 heads on model 4: 6 q heads a rank on the one kv head (G 6, the
+    # group granite-34b's 48/1 heads give a rank at model 8)
+    ("granite34b-g6", "granite-34b-smoke:24/1", (1, 4), True),
 ]
 # (f): the same, on the second group of ranks
 FAMILY_TRAIN_CASES = [
@@ -164,6 +169,17 @@ PIPE = dict(n_stages=4, n_micro=8, mb=2, d=16)
 COMP_LEAVES = {"a": (4, 6), "b/c": (16,), "b/d": (3, 5, 2)}
 
 
+def model_config(model):
+    """The config a case names: a registered one, or ``name:Hq/Hkv`` for it
+    with other head counts."""
+    name, _, heads = model.partition(":")
+    cfg = get_config(name)
+    if heads:
+        hq, hkv = map(int, heads.split("/"))
+        cfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv)
+    return cfg
+
+
 def _drop_free(cfg):
     """``cfg`` with a capacity that drops nothing and the aux loss unweighed."""
     m = cfg.moe
@@ -186,7 +202,7 @@ def _write_inputs(work: Path) -> None:
     batch = {"tokens": rng.integers(0, 256, (BATCH, SEQ)).astype(np.int32),
              "labels": rng.integers(0, 256, (BATCH, SEQ)).astype(np.int32)}
     for case, model, shape, _ in TRAIN_CASES + FAMILY_TRAIN_CASES:
-        cfg = get_config(model)
+        cfg = model_config(model)
         seed = 1 if (case, model, shape, _) in TRAIN_CASES else FAMILY_SEED
         params = build_model(cfg, device="cpu", ep=shape[1]).init(seed=seed)
         extra = {}
@@ -378,7 +394,11 @@ JAX_SCRIPT = textwrap.dedent(
 
     def train(case, model, shape, sp):
         # Two steps of make_train_step jitted with the specs' shardings.
-        cfg = get_config(model)
+        name, _, heads = model.partition(":")  # "name:Hq/Hkv": other head counts
+        cfg = get_config(name)
+        if heads:
+            hq, hkv = map(int, heads.split("/"))
+            cfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv)
         data = np.load(work / f"train-{case}.npz")
         params = unflatten({k[7:]: jnp.asarray(data[k]) for k in data if k.startswith("params/")})
         batch = {k: jnp.asarray(data[k]) for k in ("tokens", "labels", "frames") if k in data}
@@ -506,11 +526,16 @@ RANK_SCRIPT = textwrap.dedent(
         data = np.load(work / f"train-{case}.npz")
         batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "labels", "frames") if k in data}
         res = {}
-        variants = [("jax", get_config(model), 1)]
-        if get_config(model).moe is not None:
-            variants.append(("drop-free", drop_free(get_config(model)), 1))
+        name, _, heads = model.partition(":")  # "name:Hq/Hkv": other head counts
+        base = get_config(name)
+        if heads:
+            hq, hkv = map(int, heads.split("/"))
+            base = dataclasses.replace(base, n_heads=hq, n_kv_heads=hkv)
+        variants = [("jax", base, 1)]
+        if base.moe is not None:
+            variants.append(("drop-free", drop_free(base), 1))
         if case == plan["microbatch_case"]:
-            variants.append(("mb2", get_config(model), 2))
+            variants.append(("mb2", base, 2))
         for tag, cfg, mb in variants:
             api = build_model(cfg, device="cpu", ep=shape[1])
             params = load_tree(data, "params/")
@@ -850,7 +875,7 @@ def _unsharded(work: Path, case: str, microbatches: int = 1):
     """The port's two unsharded steps on the case's inputs (MoE: drop-free,
     aux unweighed): (metrics, params, opt) as numpy."""
     _, model, shape, _ = next(c for c in TRAIN_CASES + FAMILY_TRAIN_CASES if c[0] == case)
-    cfg = get_config(model)
+    cfg = model_config(model)
     if cfg.moe is not None:
         cfg = _drop_free(cfg)
     data = np.load(work / f"train-{case}.npz")
@@ -896,7 +921,7 @@ def test_sharded_train_step_matches_jax(work, case):
 def test_sharded_train_step_matches_unsharded(work, case):
     port = np.load(work / f"port-train-{case}.npz")
     model = next(c[1] for c in ALL_TRAIN_CASES if c[0] == case)
-    if get_config(model).moe is None:
+    if model_config(model).moe is None:
         _compare(port, "jax/", _unsharded(work, case))
     else:  # the aux metric is each rank's tokens' mean, averaged (unweighed here)
         _compare(port, "drop-free/", _unsharded(work, case),

@@ -4,8 +4,9 @@ CPU) against the JAX package on the same inputs, made with numpy from a seed:
 * the forward against the Pallas kernel in interpret mode (as
   ``tests/test_kernels.py`` runs it), over D {64, 80}, G {1, 4}, causal on and
   off, window {None, 16}, fp32 and bf16, at G 3 (granite-moe-3b-a800m)
-  with S 100, no multiple of the kernel's 42-position tiles at G 3, and at
-  G 48 (granite-34b's MQA, 2 positions a 128-row tile) with S 101;
+  with S 100, no multiple of the kernel's 42-position tiles at G 3, at
+  G 48 (granite-34b's MQA, 2 positions a 128-row tile) with S 101, and at
+  G 6 and G 12 (its heads a rank at model 8 and model 4) with S 101;
 * the plain backward against ``jax.vjp`` of ``blocked_attention`` (whose
   custom VJP is the rule the port copies) and against torch autograd through
   the port's own ``gqa_attention``;
@@ -125,6 +126,28 @@ def test_flash_forward_at_group_48_matches_pallas_interpret(causal, window, dtyp
     assert _maxerr(lse.numpy(), lse_full.numpy()) < 1e-5
 
 
+@pytest.mark.parametrize("g", [6, 12])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_at_rank_groups_matches_pallas_interpret(g, causal, window, dtype):
+    """granite-34b's heads a rank at model 8 (G 6) and model 4 (G 12), at
+    D 128 over one kv head at S 101: no multiple of the 21 / 10 positions
+    of the kernel's 128-row tiles, nor of the 5 / 2 of its 32-row dK/dV
+    tiles; against the Pallas forward (interpret mode) and, lse included,
+    the plain version in the kernel's key tiles."""
+    rng = np.random.default_rng(600 + g + causal + (window or 0))
+    (q, qt), (k, kt), (v, vt) = _qkv(rng, 1, 101, 1, g, 128, dtype)
+    ref = jax_flash_attention(q, k, v, causal=causal, window=window, interpret=True)
+    out = flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert out.shape == qt.shape and out.dtype == TORCH[dtype]
+    assert _maxerr(_f32(out), _f32(ref)) < TOL[dtype]
+    tiled, lse = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                     block_k=kernel_key_tile(128))
+    _, lse_full = flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    assert _maxerr(_f32(tiled), _f32(ref)) < TOL[dtype]
+    assert _maxerr(lse.numpy(), lse_full.numpy()) < 1e-5
+
+
 def test_flash_forward_lse_is_the_log_sum_exp():
     rng = np.random.default_rng(5)
     (_, q), (_, k), (_, v) = _qkv(rng, 1, 33, 2, 2, 16, "float32")
@@ -136,8 +159,9 @@ def test_flash_forward_lse_is_the_log_sum_exp():
     assert _maxerr(lse.numpy(), ref.numpy()) < 1e-5
 
 
-# G 3 and 48: granite-moe-3b-a800m's and granite-34b's groups
-@pytest.mark.parametrize("g", [1, 3, 4, 48])
+# G 3 and 48: granite-moe-3b-a800m's and granite-34b's groups; G 6 and 12:
+# granite-34b's heads a rank at model 8 and model 4
+@pytest.mark.parametrize("g", [1, 3, 4, 6, 12, 48])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, 16)])
 @pytest.mark.parametrize("block_k", [16, 1024])
 def test_flash_backward_matches_blocked_attention_vjp(g, causal, window, block_k):

@@ -165,7 +165,8 @@ FAKE_SCRIPT = textwrap.dedent(
         out["argument_bytes"][name] = dryrun.cell_inputs(api, cfg, train, ctx)["argument_bytes"]
 
     # smoke cells at a head dim the kernels have (64); 24 q heads over one kv
-    # head give 6 a rank at model 4: G 6, an instance B1 lacks
+    # head give 6 a rank at model 4 (G 6, granite-34b's at model 8), 20 give
+    # 5: G 5, an instance B1 lacks
     h64 = dict(head_dim=64, param_dtype="bfloat16", compute_dtype="bfloat16")
     # SSD heads of 64 (B4's instance) at d_model 128: 4 heads, one a rank
     ssm = dict(d_model=128, ssm=SSMConfig(d_state=64, head_dim=64, expand=2, n_groups=1,
@@ -177,10 +178,11 @@ FAKE_SCRIPT = textwrap.dedent(
         "hybrid": reduced(get_config("zamba2-1.2b"), **h64, **ssm),
         "encdec": reduced(get_config("whisper-large-v3"), **h64),
         "g6": reduced(get_config("granite-34b"), n_heads=24, n_kv_heads=1, **h64),
+        "g5": reduced(get_config("granite-34b"), n_heads=20, n_kv_heads=1, **h64),
     }
     shapes = {"dense": (train, prefill, decode), "moe": (train, prefill, decode),
               "ssm": (train, decode), "hybrid": (decode,), "encdec": (train, decode),
-              "g6": (train,)}
+              "g6": (train,), "g5": (train,)}
     out["cells"] = {}
     for name, cfg in cells.items():
         for shape in shapes[name]:
@@ -391,12 +393,20 @@ def test_run_cell_train_is_ok_for_ssm_and_encdec(sides, family):
         assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
 
 
+def test_run_cell_train_is_ok_at_a_rank_group_of_6(sides):
+    """24 q heads over one kv head at model 4: each rank runs B1 both ways
+    at G 6 on its heads, launches counted."""
+    _, port = sides
+    launches = _ok_cell(port, "g6|train")
+    assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
+
+
 def test_run_cell_fails_with_the_missing_instance(sides):
     _, port = sides
-    r = port["cells"]["g6|train"]
+    r = port["cells"]["g5|train"]
     assert r["status"] == "FAIL"
     assert r["error"].startswith("NotImplementedError: flash_attention kernel has no instance "
-                                 "for head_dim=64, group=6")
+                                 "for head_dim=64, group=5")
 
 
 # ------------------------------------------------------- kernel meta branches
@@ -501,8 +511,8 @@ def test_meta_branch_matches_the_plain_version(name):
         torch.empty(1, 8, 4, 32, **m), torch.empty(1, 8, 4, 32, **m),
         torch.empty(1, 8, 4, 32, **m)), "no instance for head_dim=32, group=1"),
     (lambda m: flash_attention.ops.flash_attention(
-        torch.empty(1, 8, 6, 64, **m), torch.empty(1, 8, 1, 64, **m),
-        torch.empty(1, 8, 1, 64, **m)), "no instance for head_dim=64, group=6"),
+        torch.empty(1, 8, 5, 64, **m), torch.empty(1, 8, 1, 64, **m),
+        torch.empty(1, 8, 1, 64, **m)), "no instance for head_dim=64, group=5"),
     (lambda m: decode_attention.ops.decode_attention(
         torch.empty(1, 1, 5, 64, **m), torch.empty(1, 8, 1, 64, **m), torch.empty(1, 8, 1, 64, **m),
         torch.empty(1, dtype=torch.int32, device="meta"),

@@ -20,9 +20,9 @@ passes against their plain versions and the checkout's design constants
 (threads a block, positions a ring stage, stages, blocks an SM by shared
 memory; null where the checkout has none).  ``--sweep`` also times the
 kernels of this checkout under other launch shapes: B1's backward at
-every group taken in head parts (``ops.HEAD_PARTS``: G 48) over the parts
-and the dK/dV kernel's warps a block (``b1bwd``), B2 with the cache cut
-for 1-4 blocks an SM (``b2``), B3a's forward over rows per program and
+every group taken in head parts (``ops.HEAD_PARTS``: G 6, 12 and 48)
+over the parts, whole included (``b1bwd``), B2 with the cache cut for 1-4
+blocks an SM (``b2``), B3a's forward over rows per program and
 warps (``fwd``), its backward also over pipeline stages and programs per SM
 (``bwd``).  Prints one JSON object per line; ``--out`` writes them to a
 file too.
@@ -49,6 +49,10 @@ def decode_inputs(torch, gen, case):
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = rnd(b, 1, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
+    if pos is None:  # cross-attention: the query and every slot at position 0
+        pos_k = torch.zeros((1, sk), device="cuda", dtype=torch.int32).expand(b, sk)
+        pos_q = torch.zeros((b,), device="cuda", dtype=torch.int32)
+        return q, k, v, pos_q, pos_k, window
     slots = torch.arange(sk, device="cuda", dtype=torch.int32)
     pos_k = (pos - torch.remainder(pos - slots, sk))[None].expand(b, sk)
     pos_q = torch.full((b,), pos, device="cuda", dtype=torch.int32)
@@ -176,8 +180,8 @@ def time_b1bwd(torch, timer, gen, emit):
 
 def sweep_b1bwd(torch, timer, gen, emit):
     """Every head-part count P (G / P heads a part, at most the 32 rows of a
-    dK/dV tile) at each case whose group is taken in parts; each one's
-    gradients against the first one's."""
+    dK/dV tile; P 1 where the group fits a tile whole) at each case whose
+    group is taken in parts; each one's gradients against the first one's."""
     from repro_torch.kernels.flash_attention import ops
 
     saved = dict(ops.HEAD_PARTS)
@@ -187,7 +191,7 @@ def sweep_b1bwd(torch, timer, gen, emit):
             continue
         args = flash_inputs(torch, gen, case)
         first = None
-        for parts in [p for p in range(2, g + 1) if g % p == 0 and g // p <= 32]:
+        for parts in [p for p in range(1, g + 1) if g % p == 0 and g // p <= 32]:
             ops.HEAD_PARTS[g] = parts
             grads = ops.flash_attention_bwd(*args)
             first = first or grads
