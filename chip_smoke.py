@@ -1574,46 +1574,22 @@ def phase_serve(torch, seed, smi):
     return engine, cache, seq, launches
 
 
-# the profiler's names of the MoE layer's spans (see ``moe_spans``)
-MOE_SPANS = ("moe_mlp_local", "moe_expert_ffn")
-
-
-@contextlib.contextmanager
-def moe_spans():
-    """While on, every ``moe_mlp_local`` call of the model, and the expert FFN
-    inside it, runs in a torch.profiler ``record_function`` span, so that a
-    profile can say how much device time the MoE layers take."""
-    from torch.profiler import record_function
-
-    from repro_torch.distributed import moe_parallel
-    from repro_torch.models import moe
-
-    saved = (moe_parallel.moe_mlp_local, moe._expert_ffn)
-
-    def span(name, fn):
-        def call(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return call
-
-    moe_parallel.moe_mlp_local = span(MOE_SPANS[0], saved[0])
-    moe._expert_ffn = span(MOE_SPANS[1], saved[1])
-    try:
-        yield
-    finally:
-        moe_parallel.moe_mlp_local, moe._expert_ffn = saved
+# the program's own spans in a train step (repro_torch.tracing): not kernels
+TRAIN_SPANS = ("step.forward", "step.backward", "step.backward.caller", "recompute", "optimizer",
+               "moe", "moe.bwd", "ce", "ce.bwd")
 
 
 def phase_profile(torch, engine, cache, seq):
     """Device time by kernel over eight decode steps after the served ones;
-    for an MoE model also the device time inside its MoE layers."""
+    for an MoE model also the device time inside its MoE layers (the
+    program's ``moe`` span)."""
     from torch.profiler import ProfilerActivity, profile
 
     api = engine.api
     tok = seq[:, -1:]
     steps = 8
     spans = {}
-    with torch.no_grad(), moe_spans():
+    with torch.no_grad():
         api.decode_step(engine.params, cache, tok, seq.shape[1])  # warm
         sync(torch)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1626,7 +1602,7 @@ def phase_profile(torch, engine, cache, seq):
     total = 0.0
     launches = 0
     for ev in prof.key_averages():
-        if ev.key in MOE_SPANS:  # a span, not a kernel (on the device too, as an annotation)
+        if ev.key == "moe":  # a span, not a kernel (on the device too, as an annotation)
             if ev.device_type == torch.autograd.DeviceType.CPU:  # its kernels' device time
                 t = getattr(ev, "device_time_total", None)
                 spans[ev.key] = ev.cuda_time_total if t is None else t
@@ -1659,10 +1635,8 @@ def phase_profile(torch, engine, cache, seq):
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1])[:14]:
         log(f"profile:   {t / 1e3 / steps:8.4f} ms/step  {g}")
     if spans:
-        layer, ffn = spans.get(MOE_SPANS[0], 0.0), spans.get(MOE_SPANS[1], 0.0)
-        log(f"profile:   of all kernels, inside moe_mlp_local {layer / 1e3 / steps:.4f} ms/step: "
-            f"expert FFN (bmm, SiLU) {ffn / 1e3 / steps:.4f}, routing, dispatch and combine "
-            f"{(layer - ffn) / 1e3 / steps:.4f}")
+        log(f"profile:   of all kernels, inside the MoE layers {spans['moe'] / 1e3 / steps:.4f} "
+            f"ms/step")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1800,20 +1774,21 @@ def phase_train(torch, seed, smi):
 
 
 def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> float:
-    """Device time of one more train step by kernel group, and of the spans
-    in it: clip + AdamW, and for an MoE model its MoE layers' forwards and
-    recomputes (``moe_spans``); returns the step's device time in seconds."""
+    """Device time of one more train step by kernel group, and of the
+    program's spans in it (``TRAIN_SPANS``): the forward, the backward and
+    remat's recompute inside it, clip + AdamW, the MoE layers and the CE
+    each way; returns the step's device time in seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(torch)
-    with moe_spans(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_step(params, opt, batch)
         sync(torch)
         wall = time.perf_counter() - t0
     groups, total, spans, kernels, n_kernels = {}, 0.0, {}, {}, 0
     for ev in prof.key_averages():
-        if ev.key in ("optimizer",) + MOE_SPANS:  # a span, not a kernel: its kernels' time
+        if ev.key in TRAIN_SPANS:  # a span, not a kernel: its kernels' time
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 t = getattr(ev, "device_time_total", None)
                 spans[ev.key] = ev.cuda_time_total if t is None else t
@@ -1861,13 +1836,12 @@ def phase_profile_train(torch, params, opt, batch, train_step, tag="train") -> f
         log(f"profile {tag}:   {t / 1e6:8.4f} s  {g}")
     for name, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile {tag}:     kernel {t / 1e6:8.4f} s  {name[:110]}")
-    if "optimizer" in spans:
-        log(f"profile {tag}:   of which clip + AdamW (all groups): {spans['optimizer'] / 1e6:.4f} s")
-    if MOE_SPANS[0] in spans:
-        layer, ffn = spans[MOE_SPANS[0]], spans.get(MOE_SPANS[1], 0.0)
-        log(f"profile {tag}:   of which inside moe_mlp_local, forwards and remat recomputes: "
-            f"{layer / 1e6:.4f} s (expert FFN {ffn / 1e6:.4f}, routing, dispatch and combine "
-            f"{(layer - ffn) / 1e6:.4f})")
+    if spans:
+        s = {k: spans.get(k, 0.0) / 1e6 for k in TRAIN_SPANS}
+        log(f"profile {tag}:   of which forward {s['step.forward']:.4f} s, backward "
+            f"{s['step.backward']:.4f} s (remat's recompute {s['recompute']:.4f}), clip + AdamW "
+            f"{s['optimizer']:.4f} s; MoE layers {s['moe']:.4f} s forward and recomputed, "
+            f"{s['moe.bwd']:.4f} s backward; CE {s['ce']:.4f} / {s['ce.bwd']:.4f} s")
     return total / 1e6
 
 

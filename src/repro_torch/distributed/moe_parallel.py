@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..models.moe import moe_mlp_ep, moe_mlp_local
 from .context import current, is_dtensor
@@ -38,6 +39,13 @@ def _tree(names, tensors) -> Dict:
 
 
 def moe_maybe_parallel(moe_params: Dict, x, cfg: ModelConfig):
+    """The MoE layer on whichever path applies (see the module's
+    docstring); while ``torch.profiler`` records, in the span ``moe`` and
+    its backward in ``moe.bwd`` (:func:`repro_torch.tracing.layer`)."""
+    return tracing.layer("moe", _moe_layer, moe_params, x, cfg)
+
+
+def _moe_layer(moe_params: Dict, x, cfg: ModelConfig):
     ctx = current()
     b, s, d = x.shape
     if not is_dtensor(x):

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..distributed.context import is_dtensor
 from ..kernels.rmsnorm.ops import rmsnorm
@@ -189,7 +190,13 @@ def chunked_cross_entropy(
     Walks the sequence chunk by chunk; each chunk unembeds, reduces to its
     NLL sum, and is recomputed in the backward pass (non-reentrant
     ``torch.utils.checkpoint``, as ``jax.checkpoint(step)`` does in the JAX
-    package), so at most one chunk's [B, chunk, V] fp32 logits are live."""
+    package), so at most one chunk's [B, chunk, V] fp32 logits are live.
+    While ``torch.profiler`` records, it runs in the span ``ce`` and its
+    backward in ``ce.bwd`` (:func:`repro_torch.tracing.layer`)."""
+    return tracing.layer("ce", _cross_entropy, x, params, cfg, labels, mask, chunk)
+
+
+def _cross_entropy(x, params, cfg, labels, mask, chunk) -> torch.Tensor:
     if is_dtensor(x):
         from ..distributed import tensor_parallel
 
@@ -222,7 +229,7 @@ def nll_sum_and_count(
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, c):
         xc, lc, mc = x[:, i : i + c], labels[:, i : i + c].long(), mask[:, i : i + c].float()
-        nll_sum = nll_sum + checkpoint(step, xc, lc, mc, use_reentrant=False)
+        nll_sum = nll_sum + checkpoint(tracing.recomputed(step), xc, lc, mc, use_reentrant=False)
     return nll_sum, mask.float().sum()
 
 

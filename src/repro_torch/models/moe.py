@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from .layers import _normal, dt, init_dense
 
@@ -105,7 +106,13 @@ def _dispatch_tables(
     """Sort-based slot assignment.
 
     Returns (slot_table [e_pad*cap] int32 of token ids (n_tokens == empty),
-             token_slots [T, k] int32 of slot ids (e_pad*cap == dropped))."""
+             token_slots [T, k] int32 of slot ids (e_pad*cap == dropped)).
+
+    While ``torch.profiler`` records, a first forward (not remat's
+    recompute) adds to the counters (:func:`repro_torch.tracing.count`)
+    ``moe.routed`` (pairs), ``moe.dropped`` (pairs past their expert's
+    capacity), ``moe.rows`` (the expert FFN's capacity rows) and
+    ``moe.rows_filled`` (rows that hold a pair)."""
     t, k = expert_idx.shape
     dev = expert_idx.device
     eflat = expert_idx.reshape(-1)  # [T*k]
@@ -120,6 +127,10 @@ def _dispatch_tables(
     slot_table[slot_sorted] = token_sorted.to(torch.int32)
     token_slots = torch.empty(t * k, dtype=torch.int32, device=dev)
     token_slots[order] = slot_sorted.to(torch.int32)
+    if tracing.counting():
+        tracing.count({"moe.routed": t * k, "moe.dropped": (token_slots == e_pad * cap).sum(),
+                       "moe.rows": e_pad * cap,
+                       "moe.rows_filled": (slot_table[:-1] != n_tokens).sum()})
     return slot_table[:-1], token_slots.reshape(t, k)
 
 

@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..distributed.context import bind, constrain
 from .attention import attention_block, init_attention, ring_positions
@@ -248,8 +249,8 @@ def _apply_stack(
             # bind: the backward pass recomputes the group on the autograd
             # engine's thread, which does not see this one's context
             x, a = checkpoint(
-                bind(_apply_pattern), x, gp, pat, positions, cfg, tables, shared,
-                use_reentrant=False,
+                tracing.recomputed(bind(_apply_pattern)), x, gp, pat, positions, cfg, tables,
+                shared, use_reentrant=False,
             )
         else:
             x, a = _apply_pattern(

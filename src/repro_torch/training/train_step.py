@@ -6,6 +6,9 @@ Gradients come from ``torch.autograd.grad`` over the param leaves (the
 leaves are marked ``requires_grad`` on first use).  With ``remat`` the
 model checkpoints each stacked group, and the chunked CE each chunk.  The
 clip and the AdamW update work in place (see :mod:`repro_torch.optim`).
+While ``torch.profiler`` records, the forward (with the loss), the
+backward and clip + AdamW sit in the spans ``step.forward``,
+``step.backward`` and ``optimizer`` (:mod:`repro_torch.tracing`).
 
 With a ``DistContext`` (``ctx``) the step is the sharded one, as the JAX
 step is under ``distribution(ctx)`` with the trees sharded by
@@ -23,8 +26,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..checkpoint import flatten_tree, unflatten_tree
 from ..distributed.context import DistContext, distribution, is_dtensor
 from ..models.registry import ModelApi
@@ -79,7 +82,7 @@ def make_train_step(
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = accumulate(params, opt_state, batch)
-        with record_function("optimizer"):  # a profiler span: clip + AdamW
+        with tracing.span("optimizer"):  # clip + AdamW
             params, opt_state, gnorm, lr = update(grads, opt_state, params)
         metrics = dict(metrics)
         metrics.update({"grad_norm": gnorm, "lr": lr, "loss": loss})
@@ -107,8 +110,8 @@ def _plain_parts(api, opt_cfg, peak_lr, warmup_steps, total_steps, max_grad_norm
     def grads_of(params, opt_state, mb) -> Tuple[torch.Tensor, Dict, Dict]:
         leaves = flatten_tree(params)
         tensors = [t.requires_grad_(True) for _, t in leaves]
-        loss, metrics = api.loss_fn(params, mb, remat=remat)
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        loss, metrics, grads = tracing.forward_backward(
+            lambda p: api.loss_fn(p, mb, remat=remat), params, tensors, allow_unused=True)
         grads = {
             path: g if g is not None else torch.zeros_like(t)
             for (path, t), g in zip(leaves, grads)
@@ -140,8 +143,9 @@ def _sharded_parts(api, opt_cfg, peak_lr, warmup_steps, total_steps, max_grad_no
         tensors = [t.requires_grad_(True) for _, t in leaves]
         spec = batch_specs({k: (tuple(x.shape), x.dtype) for k, x in mb.items()}, ctx)
         with distribution(ctx):
-            loss, metrics = api.loss_fn(params, distribute_tree(mb, spec, ctx), remat=remat)
-            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+            loss, metrics, grads = tracing.forward_backward(
+                lambda p: api.loss_fn(p, distribute_tree(mb, spec, ctx), remat=remat), params,
+                tensors, allow_unused=True)
         out = {}
         for (path, t), g in zip(leaves, grads):
             g = g if g is not None else torch.zeros_like(t)
