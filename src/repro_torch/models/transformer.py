@@ -4,7 +4,9 @@ counterpart of ``repro.models.transformer``.
 Depth is ``n_groups`` repetitions of ``cfg.pattern`` plus an unrolled tail
 when depth % pattern != 0, with the per-group parameters stacked on a leading
 ``groups`` dimension exactly as in the JAX package (so checkpoints cross over
-unchanged).  Where JAX scans over the stack, the port loops over its slices;
+unchanged).  Where JAX scans over the stack, the port loops over its slices,
+taken by one ``unbind`` of each stacked leaf a call (so that a leaf's
+gradient is one stack of the groups' gradients, as JAX's scan returns it);
 with ``remat`` each group is a non-reentrant ``torch.utils.checkpoint``
 (only its input is kept; the group is recomputed in the backward pass), as
 ``jax.checkpoint(body, nothing_saveable)`` does.
@@ -30,7 +32,7 @@ The KV cache is kept in the compute dtype or, with ``cfg.kv_cache_dtype ==
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -82,6 +84,28 @@ def _group_slice(tree: Dict, i: int) -> Dict:
     if isinstance(tree, dict):
         return {k: _group_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _group_unbind(tree: Dict, n: int) -> List[Dict]:
+    """The n slices of a tree stacked on its leading dim (views, no copies),
+    each leaf split by one ``unbind``.  Under autograd a leaf's backward is
+    then one stack of the n slices' gradients, where n index selects
+    (:func:`_group_slice`) would each fill a zero tensor of the whole leaf
+    and autograd would add the n of them.  Not for a cache written in place:
+    autograd refuses in-place writes to ``unbind``'s outputs."""
+    split = 0
+
+    def slices(t):
+        nonlocal split
+        if isinstance(t, dict):
+            parts = {k: slices(v) for k, v in t.items()}
+            return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+        split += 1
+        return t.unbind(0)
+
+    out = slices(tree)
+    tracing.count({"groups.unbound": split})
+    return out
 
 
 # ------------------------------------------------------------------- init
@@ -243,8 +267,9 @@ def _apply_stack(
     pat = cfg.pattern
     g = cfg.n_layers // len(pat)
     aux = 0.0
-    for i in range(g):
-        gp = _group_slice(params["groups"], i)
+    # one unbind a leaf, outside the checkpoints: its backward stacks once
+    gps = _group_unbind(params["groups"], g) if g else []
+    for i, gp in enumerate(gps):
         if remat:
             # bind: the backward pass recomputes the group on the autograd
             # engine's thread, which does not see this one's context

@@ -57,7 +57,7 @@ from .layers import (
     rope_frequencies,
     unembed,
 )
-from .transformer import _group_slice
+from .transformer import _group_slice, _group_unbind
 
 
 def _enc(cfg: ModelConfig):
@@ -110,8 +110,7 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig, remat: bool = F
     x = constrain(frames.to(dt(cfg.compute_dtype)), "batch")
     positions = _arange_positions(x)
     rope = rope_frequencies(cfg.head_dim_, positions, cfg.rope_theta)
-    for i in range(_enc(cfg).n_enc_layers):
-        lp = _group_slice(params["encoder"], i)
+    for lp in _group_unbind(params["encoder"], _enc(cfg).n_enc_layers):
         if remat:
             # bind: the recompute runs on autograd's thread, which does not
             # see this one's distribution context
@@ -151,8 +150,7 @@ def forward(
     x = constrain(embed(tokens, params["embed"], cfg), "residual")
     positions = _arange_positions(x)
     rope = rope_frequencies(cfg.head_dim_, positions, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        lp = _group_slice(params["decoder"], i)
+    for lp in _group_unbind(params["decoder"], cfg.n_layers):
         if remat:
             x = checkpoint(bind(_dec_layer), x, lp, enc_out, positions, rope, cfg,
                            use_reentrant=False)

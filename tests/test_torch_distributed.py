@@ -74,6 +74,11 @@ which both read from ``.npz`` files.
   within 1e-5 of max(1, max |ref|), and the same argmax tokens.  The folds
   of B2's partials are counted, and the ring case must fold a rank whose
   range holds no kept slot;
+* the stacked groups' weights through DTensor ``unbind``: granite-moe's
+  (drop-free) ``loss_fn`` with remat on the debug mesh (data 2, model 2):
+  each of the 10 stacked leaves feeds one ``UnbindBackward0`` (none falls
+  back to index selects), and its gradient, gathered, is within 1e-4 of the
+  unsharded port's;
 * meshes: ``make_debug_mesh(2, 2)`` and ``make_production_mesh`` on the
   4 ranks (``LOCAL_WORLD_SIZE`` unset, 2 and 4; with and without
   ``multi_pod``): dim names, sizes and ``mesh_batch_axes`` against JAX's,
@@ -164,6 +169,8 @@ DECODE_CASES = [
 ]
 DECODE_TOL = 1e-5
 EP_MODELS = ["granite-moe-3b-a800m-smoke", "qwen3-moe-30b-a3b-smoke"]
+#: the train case whose inputs the sharded gradients through DTensor unbind read
+UNBIND_CASE, UNBIND_MODEL = "moe", "granite-moe-3b-a800m-smoke"
 EP_B, EP_S = 4, 16
 PIPE = dict(n_stages=4, n_micro=8, mb=2, d=16)
 COMP_LEAVES = {"a": (4, 6), "b/c": (16,), "b/d": (3, 5, 2)}
@@ -244,7 +251,7 @@ def _write_inputs(work: Path) -> None:
     (work / "plan.json").write_text(json.dumps(dict(
         meshes=MESHES, caches=CACHES, train=TRAIN_CASES, ep=EP_MODELS, pipe=PIPE,
         comp=list(COMP_LEAVES), step_kw=STEP_KW, microbatch_case=MICROBATCH_CASE,
-        family_train=FAMILY_TRAIN_CASES, decode=DECODE_CASES)))
+        family_train=FAMILY_TRAIN_CASES, decode=DECODE_CASES, unbind=[UNBIND_CASE, UNBIND_MODEL])))
 
 
 JAX_SCRIPT = textwrap.dedent(
@@ -720,6 +727,37 @@ RANK_SCRIPT = textwrap.dedent(
             res[f"{tag}/exchanges"] = np.asarray(moe.moe_mlp_ep.exchanges - before)
         save(f"port-ep-{model}.npz", res)
 
+    # the stacked groups' gradients through DTensor unbind on the debug mesh:
+    # the node whose input is each leaf, and the gradients gathered
+    from repro_torch.distributed import batch_specs
+    unbind_case, unbind_model = plan["unbind"]
+    cfg = drop_free(get_config(unbind_model))
+    api = build_model(cfg, device="cpu", ep=2)
+    data = np.load(work / f"train-{unbind_case}.npz")
+    params = load_tree(data, "params/")
+    params = distribute_tree(params, param_specs(params, cfg, ctx), ctx)
+    leaves = flatten_tree(params)
+    tensors = [t.requires_grad_(True) for _, t in leaves]
+    batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "labels")}
+    batch = distribute_tree(batch, batch_specs({k: (tuple(x.shape), x.dtype)
+                                                for k, x in batch.items()}, ctx), ctx)
+    with distribution(ctx):
+        loss, _ = api.loss_fn(params, batch, remat=True)
+    paths, feeds, seen, todo = {id(t): p for p, t in leaves}, {}, set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if id(getattr(nxt, "variable", None)) in paths:
+                feeds.setdefault(paths[id(nxt.variable)], []).append(type(node).__name__)
+            todo.append(nxt)
+    grads = torch.autograd.grad(loss, tensors)
+    res = {f"grads/{p}": g.full_tensor() for (p, _), g in zip(leaves, grads)}
+    res.update({f"feeds/{p}": np.asarray(",".join(sorted(f))) for p, f in feeds.items()})
+    save("port-unbind.npz", res)
+
     for case in plan["train"]:
         train(*case)
     dist.destroy_process_group()
@@ -931,6 +969,28 @@ def test_sharded_train_step_matches_unsharded(work, case):
 def test_sharded_train_step_with_microbatches_matches_unsharded(work):
     port = np.load(work / f"port-train-{MICROBATCH_CASE}.npz")
     _compare(port, "mb2/", _unsharded(work, MICROBATCH_CASE, microbatches=2))
+
+
+def test_sharded_grads_through_dtensor_unbind_match_unsharded(work):
+    """On the debug mesh each stacked DTensor leaf feeds exactly one
+    ``UnbindBackward0`` (no leaf falls back to index selects), and the
+    gathered gradients equal the unsharded port's."""
+    port = np.load(work / "port-unbind.npz")
+    cfg = _drop_free(model_config(UNBIND_MODEL))
+    data = np.load(work / f"train-{UNBIND_CASE}.npz")
+    params = unflatten_tree({k[7:]: torch.from_numpy(data[k].copy()) for k in data
+                             if k.startswith("params/")})
+    leaves = flatten_tree(params)
+    tensors = [t.requires_grad_(True) for _, t in leaves]
+    batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "labels")}
+    loss, _ = build_model(cfg, device="cpu", ep=2).loss_fn(params, batch, remat=True)
+    grads = torch.autograd.grad(loss, tensors)
+    stacked = [p for p, _ in leaves if p.startswith("groups/")]
+    assert len(stacked) == 10
+    assert {p: str(port[f"feeds/{p}"]) for p in stacked} == dict.fromkeys(stacked,
+                                                                         "UnbindBackward0")
+    for (path, _), g in zip(leaves, grads):
+        assert _maxerr(port[f"grads/{path}"], g.numpy()) < TOL, path
 
 
 def test_split_gate_norm_normalises_whole_rows(work):
