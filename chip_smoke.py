@@ -34,7 +34,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 h2o-danube's phase 12 case runs the forward only, as its path
                 does; granite-34b's G 48 runs both ways at its serve and its
                 training shape (phase 13), and so do one rank's heads of it at
-                model 8 (G 6) and model 4 (G 12), B2 at G 6 and G 12 too;
+                model 8 (G 6) and model 4 (G 12), B2 at G 6 and G 12 too; the
+                published Zamba2-1.2B's at the benchmark cell's 8 x 4096: B1
+                at G 1 and D 128 and B4 both ways, B3a at widths 4096 and 2048;
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -99,12 +101,15 @@ Phases, each of which must pass (any failure exits non-zero):
                 held against the teacher-forced forward; then trained on 8 x
                 448 tokens against 1500 frames each on phase 5's schedule.
                 Every plain version raises, the launches are exact;
- 11. ssm-train -- mamba2-370m and zamba2-1.2b at every published width and
+ 11. ssm-train -- mamba2-370m, zamba2-1.2b and the published Zamba2-1.2B
+                (HYBRID_MODEL: its shared block over [x ; e] at 6 of its 38
+                Mamba2 layers, B1 at D 128, G 1) at every published width and
                 depth, restored from checkpoint DU files with AdamW state on the
                 device, trained on 4 x 4096 tokens (train_4k's sequence length)
                 on phase 5's schedule, every plain version refused and the
-                launches exact: B4 forward, again for the mamba layers of the
-                stacked groups (remat), and B4's backward once per mamba layer;
+                launches exact: B4 forward, again for the mamba and hybrid
+                layers of the stacked groups (remat), and B4's backward once per
+                such layer;
                 then, cut to the smallest depth that holds SSM_REMAT_LAYERS
                 layers, a stacked group and a tail, the remat gradients must
                 equal those without remat bit for bit, and in fp32 every
@@ -314,6 +319,9 @@ FLASH_CASES = [
     ("granite-34b forward, G 12", 4, 280, 12, 1, 128, True, None),
     ("granite-34b train, G 6", 2, 8192, 6, 1, 128, True, None),
     ("granite-34b train, G 12", 2, 8192, 12, 1, 128, True, None),
+    # the published Zamba2-1.2B's shared attention (phase 11 and the
+    # benchmark's zamba2-1.2b.train-4k cell): G 1 at D 128, no head parts
+    ("zamba2-1.2b-published train", 8, 4096, 32, 32, 128, True, None),
 ]
 # cases whose path runs no backward: they are checked and timed forward only
 FLASH_FORWARD_ONLY = ("h2o-danube serve forward",)
@@ -329,6 +337,7 @@ FLASH_FP32_CASES = [
     ("fp32 granite-34b forward, G 12", 4, 280, 12, 1, 128, True, None),
     ("fp32 granite-34b train, G 6", 2, 8192, 6, 1, 128, True, None),
     ("fp32 granite-34b train, G 12", 2, 8192, 12, 1, 128, True, None),
+    ("fp32 zamba2-1.2b-published train", 8, 4096, 32, 32, 128, True, None),
 ]
 # RMSNorm forward: (rows, D).  gemma3-1b's width (4 rows: a decode step at
 # batch 4), then phase 6's: mamba2-370m's d_model 1024 and gate norm 2048,
@@ -351,14 +360,20 @@ RMSNORM_CASES = [(4, 1152), (8, 1152), (4096, 1152),
                  # phase 12: a decode step and the teacher-forced forward of
                  # h2o-danube-1.8b (4 x 544) and granite-34b (4 x 280); phase
                  # 13's granite-34b training batch (2 x 8192)
-                 (4, 2560), (2176, 2560), (4, 6144), (1120, 6144), (16384, 6144)]
+                 (4, 2560), (2176, 2560), (4, 6144), (1120, 6144), (16384, 6144),
+                 # the published Zamba2-1.2B's norm over [x ; e] on the
+                 # benchmark cell's 8 x 4096 rows
+                 (32768, 4096)]
 RMSNORM_RESIDUAL_CASES = [(4, 1152), (8, 1152), (4096, 1152)]
 # RMSNorm backward: (rows, D); 16384 rows is the training batch, 4 a decode
 # step's, 2176 x 1152 gemma3-1b's forward; then phase 9's and phase 10's
 # training batches (whisper's decoder, then its encoder), and phase 13's
-# (granite-34b's d_model 6144, whose fp32 rows fit 3 pipeline stages)
+# (granite-34b's d_model 6144, whose fp32 rows fit 3 pipeline stages); then
+# the published Zamba2-1.2B's on the benchmark cell's 8 x 4096 rows: the norm
+# over [x ; e] and the gate norm (4096), the block's norms (2048)
 RMSNORM_BWD_CASES = [(16384, 2560), (4, 2560), (2176, 1152),
-                     (16384, 1536), (3584, 1280), (12000, 1280), (16384, 6144)]
+                     (16384, 1536), (3584, 1280), (12000, 1280), (16384, 6144),
+                     (32768, 4096), (32768, 2048)]
 # decode attention: (label, B, slots, Hq, Hkv, D, window, position); the first
 # is gemma3-1b's SWA ring wrapped at the last position of the serve phase
 DECODE_CASES = [
@@ -397,6 +412,8 @@ SSD_CASES = [
     ("mamba2-370m prefill", 1, 32768, 32, 64, 128, 1, "float32", False),
     ("mamba2-370m forward", 4, 512, 32, 64, 128, 1, "float32", False),
     ("zamba2-1.2b forward", 4, 512, 64, 64, 64, 1, "float32", False),
+    # the published Zamba2-1.2B's mixer on the benchmark cell's 8 x 4096
+    ("zamba2-1.2b-published train", 8, 4096, 64, 64, 64, 1, "float32", False),
 ]
 SSD_EDGE_CASES = [
     ("S < chunk", 2, 100, 8, 64, 128, 1, "float32", False),
@@ -427,6 +444,7 @@ RMSNORM_EXT_CASES = [(16384, 2048, 2048), (16384, 256, 2048)]
 SSD_BWD_CASES = [
     ("mamba2-370m train", 4, 4096, 32, 64, 128, 1, 256, False, False, False),
     ("zamba2-1.2b train", 4, 4096, 64, 64, 64, 1, 256, False, False, False),
+    ("zamba2-1.2b-published train", 8, 4096, 64, 64, 64, 1, 256, False, False, False),
 ]
 SSD_BWD_EDGE_CASES = [
     ("initial state, dfinal", 2, 512, 8, 64, 128, 1, 256, True, True, False),
@@ -474,6 +492,9 @@ RANK_LOCAL_GROUPS = (6, 12)
 # plain-version checks at the smallest depth that holds SSM_REMAT_LAYERS
 # layers, a whole stacked group and a tail
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 4096
+# phase 11 also trains the published Zamba2-1.2B (the benchmark's
+# zamba2-1.2b.train-4k model), which the registry leaves out
+HYBRID_MODEL = "zamba2-1.2b-published"
 # phase 14: MOE_MODEL at every width, cut of depth only to DIST_LAYERS of its
 # 32 layers for time, through the sharded train step at world size 1
 DIST_MODEL = "granite-moe-3b-a800m"
@@ -1651,9 +1672,9 @@ def train_launch_schedule(cfg) -> dict:
         remat = dict(flash_attention=fwd["flash_attention"], ssd_scan=0, rmsnorm=fwd["rmsnorm"] - 2)
     else:
         stacked = cfg.layer_kinds()[: (cfg.n_layers // len(cfg.pattern)) * len(cfg.pattern)]
-        n_mamba = stacked.count("mamba")
-        remat = dict(flash_attention=len(stacked) - n_mamba, ssd_scan=n_mamba,
-                     rmsnorm=2 * len(stacked))
+        n_mamba, n_hybrid = stacked.count("mamba"), stacked.count("hybrid")
+        remat = dict(flash_attention=len(stacked) - n_mamba, ssd_scan=n_mamba + n_hybrid,
+                     rmsnorm=2 * len(stacked) + 2 * n_hybrid)
     return dict(fwd, flash_attention=fwd["flash_attention"] + remat["flash_attention"],
                 flash_attention_bwd=fwd["flash_attention"],
                 ssd_scan=fwd["ssd_scan"] + remat["ssd_scan"], ssd_scan_bwd=fwd["ssd_scan"],
@@ -1867,12 +1888,14 @@ def path_launches(cfg, path: str) -> dict:
                        rmsnorm=enc["rmsnorm"] + 3 * n_dec + 1)
         return out
     kinds = cfg.layer_kinds()
-    n_mamba = kinds.count("mamba")
-    out["rmsnorm"] = 2 * len(kinds) + 1
+    n_mamba, n_hybrid = kinds.count("mamba"), kinds.count("hybrid")
+    # a hybrid layer is a Mamba2 layer (two norms, B4) whose input passes
+    # the shared block (two norms more, B1)
+    out["rmsnorm"] = 2 * len(kinds) + 2 * n_hybrid + 1
     if path == "step":
         out["decode_attention"] = len(kinds) - n_mamba
     else:
-        out.update(flash_attention=len(kinds) - n_mamba, ssd_scan=n_mamba)
+        out.update(flash_attention=len(kinds) - n_mamba, ssd_scan=n_mamba + n_hybrid)
     return out
 
 
@@ -2806,7 +2829,8 @@ def plain_grad_check(torch, api, params, batch, what: str):
 def ssm_train_checks(torch, seed, cfg, batch) -> dict:
     """At the smallest depth that holds SSM_REMAT_LAYERS layers, a whole
     stacked group and a tail (the cut is of depth only; zamba2's group holds
-    the shared attention block): the gradients of ``loss_fn`` with remat
+    the shared attention block, the published Zamba2's a hybrid layer): the
+    gradients of ``loss_fn`` with remat
     must equal those without bit for bit, every plain version refused; and
     in fp32, on the batch's first row, ``plain_grad_check`` -- dB and dC
     reach the conv output ``bcc`` as slices of its gradient, so a fault
@@ -2848,31 +2872,41 @@ def ssm_train_checks(torch, seed, cfg, batch) -> dict:
                 plain_max_rel_diff=worst, plain_worst_leaf=worst_path)
 
 
-def phase_ssm_train(torch, seed, smi, profile: bool = False):
-    """SSM_MODELS at every published width and depth, restored from
-    checkpoint files and trained on SSM_TRAIN_BATCH x SSM_TRAIN_SEQ tokens
-    on phase 5's schedule with AdamW state on the device, every plain version
-    refused and the launches exact (B4 forward, again for the mamba layers
-    of the stacked groups, and its backward once per mamba layer); then the
-    remat and plain-version checks.  Returns (launches, results)."""
+def ssm_train_config(name: str):
+    """The registry's config of ``name``, or the published Zamba2-1.2B."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.zamba2_1_2b_published import CONFIG
+
+    return CONFIG if name == CONFIG.name else get_config(name)
+
+
+def phase_ssm_train(torch, seed, smi, profile: bool = False):
+    """SSM_MODELS and HYBRID_MODEL at every published width and depth,
+    restored from checkpoint files and trained on SSM_TRAIN_BATCH x
+    SSM_TRAIN_SEQ tokens on phase 5's schedule with AdamW state on the
+    device, every plain version refused and the launches exact (B4 forward,
+    again for the mamba and hybrid layers of the stacked groups, and its
+    backward once per such layer; a hybrid layer's shared block B1 and two
+    norms more); then the remat and plain-version checks.  Returns
+    (launches, results)."""
     from repro_torch.models import build_model
 
     launches, results = {name: 0 for name, _, _ in counters()}, {}
-    for model in SSM_MODELS:
+    for model in (*SSM_MODELS, HYBRID_MODEL):
         t0 = time.perf_counter()
-        cfg = get_config(model)
+        cfg = ssm_train_config(model)
         tag = f"ssm-train {model}"
         api = build_model(cfg, device=DEVICE)
         params, gib, n_params = restore_params(api, seed, "train-chip-smoke")
         sync(torch)
         kinds = cfg.layer_kinds()
-        log(f"{tag}: {cfg.name} ({cfg.n_layers} layers: {kinds.count('mamba')} mamba of "
+        n_mamba, n_hybrid = kinds.count("mamba"), kinds.count("hybrid")
+        log(f"{tag}: {cfg.name} ({cfg.n_layers} layers: {n_mamba} mamba of "
             f"{cfg.ssm.n_heads(cfg.d_model)} heads of {cfg.ssm.head_dim}, d_state "
-            f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, {len(kinds) - kinds.count('mamba')} "
-            f"attention; d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
-            f"params) restored from {gib:.2f} GiB of checkpoint files in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, {n_hybrid} hybrid, "
+            f"{len(kinds) - n_mamba - n_hybrid} attention; d_model {cfg.d_model}, vocab "
+            f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params) restored from {gib:.2f} GiB of "
+            f"checkpoint files in {time.perf_counter() - t0:.1f} s")
         batch = token_batch(torch, cfg, seed, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
         with plain_versions_forbidden():
             params, opt, train_step, model_launches, out = run_train(

@@ -73,13 +73,17 @@ class ModelConfig:
     #:   "mamba"   — Mamba2 SSD mixer (no MLP)
     #:   "shared_attn" — attention block with weights SHARED across all
     #:                   occurrences (zamba2-style)
+    #:   "hybrid"  — the published Zamba2 layer: the one shared block over
+    #:               [x ; embedding], with this call's LoRA adapters and
+    #:               linear, added to the input of a Mamba2 mixer
     pattern: Tuple[str, ...] = ("attn",)
     sliding_window: int = 1024
     rope_theta: float = 10000.0
     #: RoPE base for sliding-window ("swa") blocks; gemma3 uses 10k local
     #: vs 1M global.  0.0 → same as rope_theta.
     rope_theta_local: float = 0.0
-    #: "swiglu" (3 matrices) or "gelu" (2 matrices, whisper-style)
+    #: "swiglu" (3 matrices) or "gelu" (2 matrices, whisper-style); the
+    #: hybrid kind's shared block has its own GELU-gated MLP
     mlp_type: str = "swiglu"
     #: KV cache storage dtype: "bfloat16" or "int8" (per-token-per-head
     #: symmetric quantization; §Perf decode lever)
@@ -90,6 +94,9 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     encdec: Optional[EncDecConfig] = None
     vlm: Optional[VLMConfig] = None
+    #: rank of each hybrid call's LoRA adapters on the shared block's q, k, v
+    #: and gate-up projections (0: no hybrid layers)
+    adapter_rank: int = 0
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     #: does any block attend with an unbounded (full) window?
@@ -137,9 +144,15 @@ class ModelConfig:
             total += self.encdec.n_enc_layers * (attn + mlp_dense + 2 * d)
             total += self.n_layers * (attn + d)
         shared_counted = False
+        hybrid = "hybrid" in self.pattern
         for kind in self.layer_kinds():
-            if kind == "mamba":
-                total += self._mamba_params()
+            if kind == "hybrid":
+                total += self._mamba_params(exact=True) + self._hybrid_call_params()
+                if not shared_counted:
+                    total += self._hybrid_shared_params()
+                    shared_counted = True
+            elif kind == "mamba":
+                total += self._mamba_params(exact=hybrid)
             elif kind == "shared_attn":
                 if not shared_counted:
                     total += attn + mlp_dense + 2 * d
@@ -172,17 +185,37 @@ class ModelConfig:
         n_moe_layers = sum(1 for k in self.layer_kinds() if k in ("moe", "swa_moe"))
         return total - n_moe_layers * inactive
 
-    def _mamba_params(self) -> int:
+    def _mamba_params(self, exact: bool = False) -> int:
+        """A Mamba2 layer as the JAX package counts it (the conv biases left
+        out, two norms), or with ``exact`` as the tree holds it (a config
+        with hybrid layers, which only the port has)."""
         assert self.ssm is not None
         d = self.d_model
         s = self.ssm
         d_in = s.d_inner(d)
         nh = s.n_heads(d)
-        in_proj = d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
-        conv = s.conv_width * (d_in + 2 * s.n_groups * s.d_state)
+        conv_ch = d_in + 2 * s.n_groups * s.d_state
+        in_proj = d * (conv_ch + d_in + nh)
+        conv = s.conv_width * conv_ch
         out_proj = d_in * d
+        if exact:  # conv biases; A, D, dt_bias, gate norm, the input norm
+            return in_proj + conv + conv_ch + out_proj + nh * 3 + d_in + d
         extras = nh * 3 + d_in + 2 * d  # A, D, dt_bias, gate-norm, norms
         return in_proj + conv + out_proj + extras
+
+    def _hybrid_shared_params(self) -> int:
+        """The one shared block: q, k, v over [x ; embedding] (2 d wide),
+        o back to d, the gate-up and down matrices, two norms."""
+        d, hd = self.d_model, self.head_dim_
+        attn = 2 * d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
+        return attn + 3 * d * self.d_ff + 2 * d + d
+
+    def _hybrid_call_params(self) -> int:
+        """One hybrid call's own weights: rank-r adapters on q, k, v and
+        gate-up, and the d x d linear on the block's output."""
+        d, hd, r = self.d_model, self.head_dim_, self.adapter_rank
+        lora = sum(r * (2 * d + n * hd) for n in (self.n_heads, self.n_kv_heads, self.n_kv_heads))
+        return lora + r * (d + 2 * self.d_ff) + d * d
 
 
 @dataclasses.dataclass(frozen=True)

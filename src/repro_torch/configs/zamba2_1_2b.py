@@ -1,7 +1,12 @@
-"""zamba2-1.2b [hybrid] — Mamba2 backbone + shared attention blocks.
+"""zamba2-1.2b [hybrid]: the JAX package's variant of Zamba2-1.2B.
 
 38L d_model=2048 32H (GQA kv=32) d_ff=8192 vocab=32000 ssm_state=64
 [arXiv:2411.15242; hf]
+
+Not the published model: here a "shared_attn" block takes the place of
+every sixth Mamba2 layer, attends over the residual alone (2048 wide, heads
+of 64) and has no LoRA adapters and no per-call linear (0.951 B params).
+The published layer is ``zamba2_1_2b_published`` beside this module.
 """
 
 from .base import ModelConfig, SSMConfig

@@ -110,6 +110,8 @@ def _param_rule(
 
 
 def param_specs(params: Any, cfg: ModelConfig, ctx: DistContext) -> Any:
+    if "hybrid" in cfg.pattern:
+        raise NotImplementedError("the hybrid kind has no sharding rules")
     ms = ctx.model_size
 
     def rule(names, leaf):

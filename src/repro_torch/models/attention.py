@@ -29,7 +29,7 @@ from ..configs.base import ModelConfig
 from ..distributed.context import is_dtensor
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
-from .layers import apply_rope, dense, dt, init_dense
+from .layers import apply_rope, dense, dense_lora, dt, init_dense, init_lora
 
 NEG_INF = -(2.0**30)
 
@@ -45,6 +45,32 @@ def init_attention(
         "k": init_dense(gen, d, cfg.n_kv_heads * hd, pdt, lead=lead),
         "v": init_dense(gen, d, cfg.n_kv_heads * hd, pdt, lead=lead),
         "o": init_dense(gen, cfg.n_heads * hd, d, pdt, lead=lead),
+    }
+
+
+def init_shared_attention(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    """The hybrid block's attention: q, k, v over [x ; embedding], 2 d_model
+    wide, and o back to d_model."""
+    d2, hd = 2 * cfg.d_model, cfg.head_dim_
+    pdt = dt(cfg.param_dtype)
+    return {
+        "q": init_dense(gen, d2, cfg.n_heads * hd, pdt),
+        "k": init_dense(gen, d2, cfg.n_kv_heads * hd, pdt),
+        "v": init_dense(gen, d2, cfg.n_kv_heads * hd, pdt),
+        "o": init_dense(gen, cfg.n_heads * hd, cfg.d_model, pdt),
+    }
+
+
+def init_attention_lora(
+    gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ()
+) -> Dict:
+    """One hybrid call's adapters on the shared q, k and v."""
+    d2, hd, r = 2 * cfg.d_model, cfg.head_dim_, cfg.adapter_rank
+    pdt = dt(cfg.param_dtype)
+    return {
+        "q": init_lora(gen, d2, cfg.n_heads * hd, r, pdt, lead),
+        "k": init_lora(gen, d2, cfg.n_kv_heads * hd, r, pdt, lead),
+        "v": init_lora(gen, d2, cfg.n_kv_heads * hd, r, pdt, lead),
     }
 
 
@@ -160,6 +186,29 @@ def attention_block(
         ck, cv = cache["k"], cache["v"]
     out = decode_attention(q, ck, cv, positions[:, 0], positions_k, window=window)
     return dense(out.reshape(b, s, -1), params["o"]), cache
+
+
+def shared_attention_block(
+    params: Dict,
+    lora: Dict,
+    h: torch.Tensor,  # [B, S, 2 d_model]: RMSNorm([x ; embedding])
+    cfg: ModelConfig,
+    rope: Tuple[torch.Tensor, torch.Tensor],  # cos, sin [B, S, D//2], positions arange(S)
+) -> torch.Tensor:
+    """The hybrid block's causal attention (Zamba2's): q, k, v each W h +
+    B A h with this call's adapters, RoPE over the whole head, scores
+    scaled by (D/2)^-0.5, out projection to d_model.  The flash kernel
+    scales by D^-0.5, so q enters it multiplied by sqrt(2) in fp32 before
+    the cast."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim_
+    q = dense_lora(h, params["q"], lora["q"]).reshape(b, s, -1, hd)
+    k = dense_lora(h, params["k"], lora["k"]).reshape(b, s, -1, hd)
+    v = dense_lora(h, params["v"], lora["v"]).reshape(b, s, -1, hd)
+    q = apply_rope(q, *rope, scale=2.0**0.5)
+    k = apply_rope(k, *rope)
+    out = flash_attention(q, k, v, causal=True)
+    return dense(out.reshape(b, s, -1), params["o"])
 
 
 def cross_attention_block(

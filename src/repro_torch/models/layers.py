@@ -78,14 +78,19 @@ def rope_frequencies(
     return torch.cos(angles), torch.sin(angles)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+def apply_rope(
+    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, scale: float = 1.0
+) -> torch.Tensor:
     """Half-split RoPE in fp32.  x: [B, S, H, D]; cos/sin: [B, S, D//2] from
     ``rope_frequencies`` (the model builds them once per theta and shares
-    them across layers)."""
+    them across layers).  ``scale`` multiplies the result in fp32, before
+    the cast back to x's dtype."""
     cos = cos[:, :, None, :]
     sin = sin[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if scale != 1.0:
+        out = out * scale
     return out.to(x.dtype)
 
 
@@ -104,6 +109,23 @@ def init_dense(
 
 def dense(x: torch.Tensor, params: Dict) -> torch.Tensor:
     return x @ params["w"].to(x.dtype)
+
+
+def init_lora(
+    gen: torch.Generator, d_in: int, d_out: int, rank: int, dtype, lead: Tuple[int, ...] = ()
+) -> Dict:
+    """A rank-``rank`` adapter beside a d_in x d_out projection: ``down``
+    [d_in, rank] and ``up`` [rank, d_out], both drawn (``up`` is not zero,
+    so that the adapter acts from the start)."""
+    return {
+        "down": init_dense(gen, d_in, rank, dtype, lead=lead),
+        "up": init_dense(gen, rank, d_out, dtype, lead=lead),
+    }
+
+
+def dense_lora(x: torch.Tensor, params: Dict, lora: Dict) -> torch.Tensor:
+    """x W + (x A) B: a projection and its adapter."""
+    return dense(x, params) + dense(dense(x, lora["down"]), lora["up"])
 
 
 # -------------------------------------------------------------------- mlp
@@ -135,6 +157,24 @@ def mlp(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
         )
     # jax.nn.gelu defaults to the tanh approximation
     return dense(F.gelu(dense(x, params["up"]), approximate="tanh"), params["down"])
+
+
+def init_geglu(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    """The hybrid block's MLP: ``gate_up`` [d, 2 d_ff] (the gate's columns
+    first) and ``down`` [d_ff, d]."""
+    d, f = cfg.d_model, cfg.d_ff
+    pdt = dt(cfg.param_dtype)
+    return {
+        "gate_up": init_dense(gen, d, 2 * f, pdt),
+        "down": init_dense(gen, f, d, pdt, scale=f**-0.5),
+    }
+
+
+def geglu_mlp(x: torch.Tensor, params: Dict, lora: Dict) -> torch.Tensor:
+    """down(GELU(a) * b), [a ; b] = x W_gu + (x A) B: exact (erf) GELU, as
+    transformers' ``"gelu"``; ``lora`` is this call's gate-up adapter."""
+    a, b = dense_lora(x, params["gate_up"], lora).chunk(2, dim=-1)
+    return dense(F.gelu(a) * b, params["down"])
 
 
 # -------------------------------------------------------------- embeddings

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from ..distributed.context import is_dtensor
 from ..kernels.ssd_scan.ops import ssd
@@ -133,11 +134,17 @@ def mamba_block(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full Mamba2 mixer; returns (out [B, S, d_model], final_state
     [B, H, P, N] fp32).  On ``DTensor`` s it runs on each rank's heads
-    (:func:`repro_torch.distributed.tensor_parallel.mamba_block`)."""
+    (:func:`repro_torch.distributed.tensor_parallel.mamba_block`).  While
+    ``torch.profiler`` records, in the span ``mamba`` and its backward in
+    ``mamba.bwd`` (:func:`repro_torch.tracing.layer`)."""
     if is_dtensor(u):
         from ..distributed import tensor_parallel
 
         return tensor_parallel.mamba_block(params, u, cfg, initial_state)
+    return tracing.layer("mamba", _mixer, params, u, cfg, initial_state, norm, groups)
+
+
+def _mixer(params, u, cfg, initial_state, norm, groups):
     dims = mamba_dims(cfg)
     b, s, _ = u.shape
     # heads and channels from the weights: a tensor-parallel rank holds a share

@@ -13,7 +13,14 @@ with ``remat`` each group is a non-reentrant ``torch.utils.checkpoint``
 
 "mamba" blocks are the Mamba2 mixer of :mod:`.mamba2` (no MLP).  A
 "shared_attn" block (zamba2) applies the ONE parameter set ``params["shared"]``
-at every occurrence, each occurrence with its own KV cache.  "moe" and
+at every occurrence, each occurrence with its own KV cache.  A "hybrid"
+layer (the published Zamba2's) is a Mamba2 layer whose mixer input is
+RMSNorm(x + L_i T): T is the ONE shared block of ``params["shared"]`` over
+[x ; e], e the embedding output, with call i's LoRA adapters, and L_i call
+i's own linear; call i's leaves (its Mamba2 layer, ``linear``, ``lora``)
+are stacked on the groups like any position's.  The embedding then rides
+along through the groups and remat's checkpoints.  Decode and sharding of
+the hybrid kind are not ported (``NotImplementedError``).  "moe" and
 "swa_moe" blocks replace the dense MLP with the MoE layer
 (``distributed.moe_parallel.moe_maybe_parallel``: :func:`.moe.moe_mlp_local`,
 or its expert-parallel body under a mesh) and add its router aux loss to
@@ -39,14 +46,26 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tracing
 from ..configs.base import ModelConfig
-from ..distributed.context import bind, constrain
-from .attention import attention_block, init_attention, ring_positions
+from ..distributed.context import bind, constrain, is_dtensor
+from .attention import (
+    attention_block,
+    init_attention,
+    init_attention_lora,
+    init_shared_attention,
+    ring_positions,
+    shared_attention_block,
+)
 from .layers import (
     chunked_cross_entropy,
+    dense,
     dt,
     generator,
     embed,
+    geglu_mlp,
+    init_dense,
     init_embedding,
+    init_geglu,
+    init_lora,
     init_mlp,
     init_rmsnorm,
     mlp,
@@ -57,7 +76,7 @@ from .layers import (
 from .mamba2 import init_mamba_block, init_mamba_cache, mamba_block, mamba_decode_step
 from .moe import init_moe
 
-PORTED_KINDS = ("attn", "global", "swa", "moe", "swa_moe", "mamba", "shared_attn")
+PORTED_KINDS = ("attn", "global", "swa", "moe", "swa_moe", "mamba", "shared_attn", "hybrid")
 MOE_KINDS = ("moe", "swa_moe")
 SWA_KINDS = ("swa", "swa_moe")
 
@@ -122,6 +141,17 @@ def init_block(
             "ln1": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
             "mamba": init_mamba_block(gen, cfg, lead),
         }
+    if kind == "hybrid":  # one call's own leaves: its Mamba2 layer, adapters, linear
+        d, r = cfg.d_model, cfg.adapter_rank
+        return {
+            "ln1": init_rmsnorm(d, pdt, gen.device, lead),
+            "mamba": init_mamba_block(gen, cfg, lead),
+            "linear": init_dense(gen, d, d, pdt, lead=lead),
+            "lora": {
+                **init_attention_lora(gen, cfg, lead),
+                "gate_up": init_lora(gen, d, 2 * cfg.d_ff, r, pdt, lead),
+            },
+        }
     block = {
         "ln1": init_rmsnorm(cfg.d_model, pdt, gen.device, lead),
         "attn": init_attention(gen, cfg, lead),
@@ -157,11 +187,25 @@ def init_lm(cfg: ModelConfig, device, seed: int = 0, ep: int = 1) -> Dict:
         }
     if "shared_attn" in pat:
         params["shared"] = init_block(gen, "shared_attn", cfg, ep=ep)
+    if "hybrid" in pat:
+        params["shared"] = init_shared_block(gen, cfg)
     if tail_kinds:
         params["tail"] = {
             f"pos{i}": init_block(gen, kind, cfg, ep=ep) for i, kind in enumerate(tail_kinds)
         }
     return params
+
+
+def init_shared_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    """The hybrid layers' one shared block: RMSNorm over [x ; e] (2
+    d_model), attention, RMSNorm, the GELU-gated MLP."""
+    pdt = dt(cfg.param_dtype)
+    return {
+        "ln1": init_rmsnorm(2 * cfg.d_model, pdt, gen.device),
+        "attn": init_shared_attention(gen, cfg),
+        "ln2": init_rmsnorm(cfg.d_model, pdt, gen.device),
+        "mlp": init_geglu(gen, cfg),
+    }
 
 
 # ----------------------------------------------------------------- blocks
@@ -190,6 +234,19 @@ def _tables(
     return tables
 
 
+def _shared_call(
+    shared: Dict, own: Dict, x: torch.Tensor, emb: torch.Tensor, cfg: ModelConfig, rope
+) -> torch.Tensor:
+    """L_i T: the shared block over [x ; e] with call i's adapters (no
+    residual inside it), then call i's linear; ``own`` holds call i's
+    ``lora`` and ``linear``."""
+    tracing.count({"shared.applied": 1})
+    h = rms_norm(torch.cat([x, emb], dim=-1), shared["ln1"], cfg.norm_eps)
+    t = shared_attention_block(shared["attn"], own["lora"], h, cfg, rope)
+    t = geglu_mlp(rms_norm(t, shared["ln2"], cfg.norm_eps), shared["mlp"], own["lora"]["gate_up"])
+    return dense(t, own["linear"])
+
+
 def apply_block(
     kind: str,
     bp: Dict,
@@ -199,9 +256,22 @@ def apply_block(
     tables: Dict,
     cache: Optional[Dict] = None,
     cache_index: Optional[int] = None,
+    shared: Optional[Dict] = None,
+    emb: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """One block; returns (the new residual stream, its MoE aux loss: a
-    scalar tensor for an MoE block, else 0.0).  A cache is written in place."""
+    scalar tensor for an MoE block, else 0.0).  A cache is written in place.
+    A hybrid layer reads the ``shared`` block and the embedding ``emb``;
+    while ``torch.profiler`` records, its shared call sits in the span
+    ``shared`` and its backward in ``shared.bwd``."""
+    if kind == "hybrid":
+        if cache is not None or is_dtensor(x):
+            raise NotImplementedError("decode and sharding of the hybrid kind are not ported")
+        own = {"lora": bp["lora"], "linear": bp["linear"]}
+        t = tracing.layer("shared", _shared_call, shared, own, x, emb, cfg,
+                          tables["rope"][_kind_theta(kind, cfg)])
+        h = rms_norm(x + t, bp["ln1"], cfg.norm_eps)
+        return x + mamba_block(bp["mamba"], h, cfg)[0], 0.0
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == "mamba":
         if cache is not None:
@@ -239,13 +309,14 @@ def _apply_pattern(
     shared: Optional[Dict] = None,
     caches: Optional[Dict] = None,
     cache_index: Optional[int] = None,
+    emb: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Any]:
     aux = 0.0
     for i, kind in enumerate(kinds):
         # a shared_attn block runs the model's one shared parameter set
         bp = shared if kind == "shared_attn" else gp[f"pos{i}"]
         cache_i = caches[f"pos{i}"] if caches is not None else None
-        x, a = apply_block(kind, bp, x, positions, cfg, tables, cache_i, cache_index)
+        x, a = apply_block(kind, bp, x, positions, cfg, tables, cache_i, cache_index, shared, emb)
         aux = aux + a
     return x, aux
 
@@ -261,11 +332,13 @@ def _apply_stack(
 ) -> Tuple[torch.Tensor, Any]:
     """All blocks: the stacked groups in order (each checkpointed with
     ``remat``), then the tail; returns (x, the summed MoE aux loss, 0.0
-    without MoE blocks)."""
+    without MoE blocks).  With hybrid layers, x on entry is the embedding
+    output, which each of them reads."""
     tables = _tables(x, positions, cfg, cache, cache_index)
     shared = params.get("shared")
     pat = cfg.pattern
     g = cfg.n_layers // len(pat)
+    emb = x if "hybrid" in pat else None  # what a hybrid layer reads beside x
     aux = 0.0
     # one unbind a leaf, outside the checkpoints: its backward stacks once
     gps = _group_unbind(params["groups"], g) if g else []
@@ -275,7 +348,7 @@ def _apply_stack(
             # engine's thread, which does not see this one's context
             x, a = checkpoint(
                 tracing.recomputed(bind(_apply_pattern)), x, gp, pat, positions, cfg, tables,
-                shared, use_reentrant=False,
+                shared, use_reentrant=False, emb=emb,
             )
         else:
             x, a = _apply_pattern(
@@ -288,6 +361,7 @@ def _apply_stack(
                 shared,
                 _group_slice(cache["groups"], i) if cache is not None else None,
                 cache_index,
+                emb,
             )
         x = constrain(x, "residual")
         aux = aux + a
@@ -303,6 +377,7 @@ def _apply_stack(
             shared,
             cache["tail"] if cache is not None else None,
             cache_index,
+            emb,
         )
         aux = aux + a
     return x, aux
@@ -382,6 +457,8 @@ def _init_block_cache(
 ) -> Dict:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind == "hybrid":
+        raise NotImplementedError("decode of the hybrid kind is not ported")
     if kind == "mamba":
         return init_mamba_cache(cfg, batch, device, lead)
     # SWA blocks never attend beyond their window -> a ring buffer of window

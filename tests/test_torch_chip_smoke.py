@@ -59,6 +59,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke as cs
     from repro_torch.configs import base, registry
+    from repro_torch.configs.zamba2_1_2b_published import CONFIG as ZAMBA2_PUBLISHED
     from repro_torch.kernels import count_launch
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -79,6 +80,11 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     # one group of the 6-block pattern plus a tail of 2 mamba blocks
     tiny_zamba = dataclasses.replace(
         base.reduced(registry.get_config("zamba2-1.2b")), name="tiny-zamba", n_layers=8, **bf16)
+    # the published Zamba2's hybrid layer: one group of 5 mamba + hybrid and a
+    # tail of 2 mamba, its shared block's 8 heads of 16 over [x ; e] (2 x 64)
+    tiny_hybrid = dataclasses.replace(
+        base.reduced(ZAMBA2_PUBLISHED), name="tiny-hybrid", n_layers=8, n_heads=8,
+        n_kv_heads=8, adapter_rank=8, **bf16)
     # granite's GQA group of 3; every expert chosen (top 4 of 4), so that
     # the int8 cache's noise cannot flip a router choice at this size
     tiny_moe = dataclasses.replace(
@@ -100,6 +106,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     monkeypatch.setitem(registry.ARCHS, "tiny-whisper", tiny_whisper)
     monkeypatch.setitem(registry.ARCHS, "tiny-mamba", tiny_mamba)
     monkeypatch.setitem(registry.ARCHS, "tiny-zamba", tiny_zamba)
+    monkeypatch.setitem(registry.ARCHS, "tiny-hybrid", tiny_hybrid)
     monkeypatch.setitem(registry.ARCHS, "tiny", tiny)
     monkeypatch.setitem(registry.ARCHS, "tiny-train", tiny_train)
     for name, value in dict(
@@ -130,7 +137,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
                             ("unaligned rows, chunk 10", 1, 30, 2, 16, 16, 1, 10, True, True,
                              True)],
         SSM_TRAIN_BATCH=2, SSM_TRAIN_SEQ=32, SSM_REMAT_LAYERS=1,
-        SSM_MODELS=("tiny-mamba", "tiny-zamba"), SSM_PROMPT_LEN=25,
+        SSM_MODELS=("tiny-mamba", "tiny-zamba"), HYBRID_MODEL="tiny-hybrid", SSM_PROMPT_LEN=25,
         SSM_NEW_TOKENS=8, SSM_MAX_LEN=32, SSM_BATCH=2, SSM_CHECK_POSITIONS=(0, 15, 16, 31),
         PREFILL_MODEL="tiny-mamba", PREFILL_LEN=64,
         # phase 6 serves them cut by one layer (tiny-zamba: one group and a
@@ -296,17 +303,20 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
                        "flash_attention_bwd": 4 * 6, "rmsnorm": 5 + 10 * 7 + 12 + 2 * 12 + 4 * 22,
                        "rmsnorm_bwd": 4 * 12, "rmsnorm_residual": 0, "ssd_scan": 0,
                        "ssd_scan_bwd": 0, **new}
-    # ssm-train: tiny-mamba (3 mamba layers, each its own stacked group) and
+    # ssm-train: tiny-mamba (3 mamba layers, each its own stacked group),
     # tiny-zamba (a group of 5 mamba + the shared attention block, a tail of 2
-    # mamba), 2 evals and 4 remat steps each; the stacked groups' mamba layers
-    # run B4 again in the backward pass, the tail's do not
+    # mamba) and tiny-hybrid (a group of 5 mamba + a hybrid layer, a tail of
+    # 2 mamba: 8 B4, 1 B1 and 2 x 8 + 2 + 1 norms a forward), 2 evals and 4
+    # remat steps each; the stacked groups' mamba and hybrid layers run B4
+    # again in the backward pass, the tail's do not
     ssm_train = {name: k["launches_by_path"]["ssm-train"] for name, k in kernels.items()}
     assert ssm_train == {
-        "ssd_scan": (2 * 3 + 4 * (3 + 3)) + (2 * 7 + 4 * (7 + 5)),
-        "ssd_scan_bwd": 4 * 3 + 4 * 7,
-        "flash_attention": 2 * 1 + 4 * 2, "flash_attention_bwd": 4 * 1,
-        "rmsnorm": (2 * 7 + 4 * (7 + 6)) + (2 * 17 + 4 * (17 + 12)),
-        "rmsnorm_bwd": 4 * 7 + 4 * 17, "decode_attention": 0, "rmsnorm_residual": 0, **new}
+        "ssd_scan": (2 * 3 + 4 * (3 + 3)) + (2 * 7 + 4 * (7 + 5)) + (2 * 8 + 4 * (8 + 6)),
+        "ssd_scan_bwd": 4 * 3 + 4 * 7 + 4 * 8,
+        "flash_attention": 2 * (2 * 1 + 4 * 2), "flash_attention_bwd": 2 * 4 * 1,
+        "rmsnorm": (2 * 7 + 4 * (7 + 6)) + (2 * 17 + 4 * (17 + 12)) + (2 * 19 + 4 * (19 + 14)),
+        "rmsnorm_bwd": 4 * 7 + 4 * 17 + 4 * 19, "decode_attention": 0, "rmsnorm_residual": 0,
+        **new}
     assert kernels["ssd_scan_bwd"]["launches"] == ssm_train["ssd_scan_bwd"]
     # dense-serve: tiny-danube (2 layers) decodes 10 + 4 - 1 steps and the
     # engine's next one, then runs the forward; tiny-granite (1 layer) 8 + 4 - 1

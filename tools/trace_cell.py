@@ -39,10 +39,12 @@ from portbench import harness, program_spans  # noqa: E402
 from portbench.trace import kernel_group  # noqa: E402
 
 #: spans inside which the backward's device time belongs to a layer
-COVERED = ("moe.bwd", "ce.bwd", "pb.attn.bwd", "pb.ssd.bwd", "recompute")
+COVERED = ("moe.bwd", "ce.bwd", "mamba.bwd", "shared.bwd", "pb.attn.bwd", "pb.ssd.bwd",
+           "recompute")
 NODE = "autograd::engine::evaluate_function: "
 SPANS = ("step.forward", "step.backward", "optimizer", "recompute", "moe", "moe.bwd", "ce",
-         "ce.bwd", "pb.moe_layer", "pb.attn", "pb.attn.bwd")
+         "ce.bwd", "mamba", "mamba.bwd", "shared", "shared.bwd", "pb.moe_layer", "pb.attn",
+         "pb.attn.bwd", "pb.ssd", "pb.ssd.bwd")
 
 
 def uncovered(tr):
