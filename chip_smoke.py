@@ -36,7 +36,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 training shape (phase 13), and so do one rank's heads of it at
                 model 8 (G 6) and model 4 (G 12), B2 at G 6 and G 12 too; the
                 published Zamba2-1.2B's at the benchmark cell's 8 x 4096: B1
-                at G 1 and D 128 and B4 both ways, B3a at widths 4096 and 2048;
+                at G 1 and D 128 and B4 both ways, B3a at widths 4096 and 2048,
+                and C1 (the Mamba2 mixer's causal conv, bias and SiLU, a kernel
+                of the port's own) both ways on its x conv and its B/C conv,
+                in bf16 and fp32, beside depthwise F.conv1d + F.silu as the
+                library yardstick; C1's backward must give the same bits
+                twice;
   4. serve   -- gemma3-1b at full width (26 layers, vocab 262144, bf16, random
                 weights from --seed) written to checkpoint DU files and served
                 from them by DecodeEngine: 4 prompts of 520 tokens plus 24 new
@@ -60,7 +65,8 @@ Phases, each of which must pass (any failure exits non-zero):
                 side of the chunk boundary; layer 0's final SSM state against
                 the engine's; then a 32768-token prefill of mamba2-370m at
                 full depth (``forward(last_only=True)``, weights drawn on the
-                card).  Launch counters prove every path's kernels ran;
+                card).  Launch counters prove every path's kernels ran (a
+                forward's and a prefill's two C1 calls a mamba layer too);
   7. pilot   -- the Pilot-Data runtime on the card (one Session, two pods,
                 two sim:// pilots, two mem:// Pilot-Data): h2o-
                 danube-1.8b, at every width but cut to PILOT_TRAIN_LAYERS
@@ -109,7 +115,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 on phase 5's schedule, every plain version refused and the
                 launches exact: B4 forward, again for the mamba and hybrid
                 layers of the stacked groups (remat), and B4's backward once per
-                such layer;
+                such layer; C1 twice each time B4 runs, forward and backward;
                 then, cut to the smallest depth that holds SSM_REMAT_LAYERS
                 layers, a stacked group and a tail, the remat gradients must
                 equal those without remat bit for bit, and in fp32 every
@@ -446,6 +452,20 @@ SSD_BWD_CASES = [
     ("zamba2-1.2b train", 4, 4096, 64, 64, 64, 1, 256, False, False, False),
     ("zamba2-1.2b-published train", 8, 4096, 64, 64, 64, 1, 256, False, False, False),
 ]
+# C1, the Mamba2 mixer's causal conv, bias and SiLU: (label, B, S, C, width,
+# x dtype; w and b take the same); the timed cases are the benchmark cell's
+# (the published Zamba2-1.2B at 8 x 4096) x conv over its 4096 channels and
+# B/C conv over 128, in bf16 as the cell runs them and in fp32 as phase 11's
+# plain-version check does; the edge cases are only held against the plain
+# version: an odd channel count (element loads), S shorter than the width,
+# width 2 over a ragged last tile
+CONV_CASES = [("zamba2-1.2b x conv", 8, 4096, 4096, 4, "bfloat16"),
+              ("zamba2-1.2b B/C conv", 8, 4096, 128, 4, "bfloat16"),
+              ("zamba2-1.2b x conv, fp32", 8, 4096, 4096, 4, "float32"),
+              ("zamba2-1.2b B/C conv, fp32", 8, 4096, 128, 4, "float32")]
+CONV_EDGE_CASES = [("odd channels", 2, 77, 99, 3, "bfloat16"),
+                   ("S < width", 2, 3, 64, 4, "float32"),
+                   ("width 2, ragged tile", 1, 1000, 136, 2, "bfloat16")]
 SSD_BWD_EDGE_CASES = [
     ("initial state, dfinal", 2, 512, 8, 64, 128, 1, 256, True, True, False),
     ("G 2", 2, 512, 8, 64, 64, 2, 256, False, True, False),
@@ -543,6 +563,7 @@ FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 RMSNORM_SRC = "src/repro_torch/kernels/rmsnorm/rmsnorm.py"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_BWD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
+CONV_SRC = "src/repro_torch/kernels/causal_conv/csrc/causal_conv.cu"
 
 
 def sync(torch) -> None:
@@ -675,6 +696,7 @@ def phase_build(torch):
         f"spill report in {build.BUILD_DIR.relative_to(ROOT)}/*.log), "
         f"triton JIT {triton_s:.2f} s")
     check_no_spills(build, "ssd_scan_bwd")
+    check_no_spills(build, "causal_conv")
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
                           check=True, capture_output=True, text=True, timeout=300).stdout
@@ -727,6 +749,7 @@ def check_tensor_cores(counts: dict) -> None:
 
 def counters():
     """(kernel name, wrapper, attribute) of every launch counter."""
+    from repro_torch.kernels.causal_conv import ops as conv_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -745,6 +768,8 @@ def counters():
         ("rmsnorm_stat", norm_ops.rmsnorm, "stat_launches"),
         ("rmsnorm_ext", norm_ops.rmsnorm, "ext_launches"),
         ("rmsnorm_ext_bwd", norm_ops.rmsnorm, "ext_backward_launches"),
+        ("causal_conv", conv_ops.causal_conv_silu, "launches"),
+        ("causal_conv_bwd", conv_ops.causal_conv_silu, "backward_launches"),
     ]
 
 
@@ -1483,6 +1508,91 @@ def ssd_bwd_cases(torch, timer, gen):
     return cases
 
 
+def conv_cases(torch, timer, gen):
+    """C1 both ways against its plain version at CONV_CASES and
+    CONV_EDGE_CASES: y (fp32) within 1e-4 relative plus 1e-5 x max|ref|; dx
+    within one ulp of x's dtype (1e-4 relative in fp32) plus 1e-5 x
+    max|ref|, dw and db likewise (sums over every row and position, in
+    another order); a second backward must give the same bits.  Timed
+    beside the plain version, depthwise ``F.conv1d`` + ``F.silu`` in x's
+    dtype (the library yardstick: its forward, and its autograd backward
+    alone) and the bound by bytes.  Returns (forward cases, backward
+    cases)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.causal_conv import ops
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu_bwd_ref, causal_conv_silu_ref
+
+    fwd_cases, bwd_cases = [], []
+    timed = {c[0] for c in CONV_CASES}
+    for label, b, s, c, width, dtype_name in CONV_CASES + CONV_EDGE_CASES:
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn(b, s, c, generator=gen, device=DEVICE).to(dtype)
+        w = (torch.randn(width, c, generator=gen, device=DEVICE) * width**-0.5).to(dtype)
+        bias = (torch.randn(c, generator=gen, device=DEVICE) * 0.1).to(dtype)
+        dy = torch.randn(b, s, c, generator=gen, device=DEVICE)
+        name = f"causal_conv {label} [{b},{s},{c}] width {width} {dtype_name}"
+        rtol = BF16_ULP if dtype == torch.bfloat16 else 1e-4
+
+        def scale(t):
+            return 1e-5 * max(1.0, t.float().abs().max().item())
+
+        y = ops.causal_conv_silu(x, w, bias)
+        ref_y = causal_conv_silu_ref(x, w, bias)
+        sync(torch)
+        err = check_close(name, y, ref_y, 1e-4, scale(ref_y))
+        del y, ref_y
+        got = ops.causal_conv_silu_bwd(x, w, bias, dy)
+        again = ops.causal_conv_silu_bwd(x, w, bias, dy)
+        want = causal_conv_silu_bwd_ref(x, w, bias, dy)
+        sync(torch)
+        bwd_err = 0.0
+        for what, gv, av, wv in zip(("dx", "dw", "db"), got, again, want):
+            if not torch.equal(gv, av):
+                raise AssertionError(f"{name}: {what} differs between two calls")
+            bwd_err = max(bwd_err, check_close(f"{name} {what}", gv, wv, rtol, scale(wv)))
+        del got, again, want
+        if label not in timed:
+            log(f"kernels: {name} max|err| {err:.2e} forward, {bwd_err:.2e} backward (two calls "
+                "equal bit for bit)")
+            continue
+        ms = timer(lambda: ops.causal_conv_silu(x, w, bias))
+        plain = timer(lambda: causal_conv_silu_ref(x, w, bias))
+        bwd_ms = timer(lambda: ops.causal_conv_silu_bwd(x, w, bias, dy))
+        bwd_plain = timer(lambda: causal_conv_silu_bwd_ref(x, w, bias, dy))
+        # the library yardstick, which the port never calls: cuDNN's depthwise
+        # conv over [B, C, S] in x's dtype, then SiLU
+        leaves = [t.detach().requires_grad_() for t in (x, w, bias)]
+
+        def library(xl, wl, bl):
+            out = F.conv1d(xl.transpose(1, 2), wl.t()[:, None], bl, padding=width - 1, groups=c)
+            return F.silu(out[..., :s]).transpose(1, 2)
+
+        lib = timer(lambda: library(x, w, bias))
+        lib_y = library(*leaves)
+        lib_bwd = timer(lambda: torch.autograd.grad(lib_y, leaves, dy, retain_graph=True))
+        del leaves, lib_y
+        for cases, case_ms, case_plain, case_lib, cst, case_err in (
+                (fwd_cases, ms, plain, lib, ops.cost(b, s, c, width, x.element_size()), err),
+                (bwd_cases, bwd_ms, bwd_plain, lib_bwd,
+                 ops.bwd_cost(b, s, c, width, x.element_size()), bwd_err)):
+            bound, by = bound_ms(cst.bytes, cst.flops, FP32_FLOPS)
+            cases.append(dict(case=label, B=b, S=s, C=c, width=width, dtype=dtype_name,
+                              bytes=cst.bytes, flops=cst.flops, ms=case_ms, plain_ms=case_plain,
+                              library_ms=case_lib, bound_ms=bound, bound_by=by,
+                              max_abs_err=case_err))
+        log(f"kernels: {name}: forward {ms:.4f} ms (plain {plain:.4f}, F.conv1d + F.silu "
+            f"{lib:.4f}, bound {fwd_cases[-1]['bound_ms']:.4f} by bytes, "
+            f"{fwd_cases[-1]['bytes'] / ms / 1e6:.1f} GB/s), backward {bwd_ms:.4f} ms (plain "
+            f"{bwd_plain:.4f}, library {lib_bwd:.4f}, bound {bwd_cases[-1]['bound_ms']:.4f}, "
+            f"{bwd_cases[-1]['bytes'] / bwd_ms / 1e6:.1f} GB/s); max|err| {err:.2e} / "
+            f"{bwd_err:.2e}, two backwards equal bit for bit")
+        del x, w, bias, dy
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
 def phase_kernels(torch, seed):
     timer = Timer(torch)
     gen = torch.Generator(device=DEVICE)
@@ -1500,6 +1610,7 @@ def phase_kernels(torch, seed):
         "ssd_scan_bwd": ssd_bwd_cases(torch, timer, gen),
         "decode_attention_partial": decode_partial_cases(torch, timer, gen),
     }
+    results["causal_conv"], results["causal_conv_bwd"] = conv_cases(torch, timer, gen)
     results["rmsnorm_stat"], results["rmsnorm_ext"], results["rmsnorm_ext_bwd"] = (
         rmsnorm_ext_cases(torch, timer, gen))
     del timer
@@ -1663,10 +1774,11 @@ def phase_profile(torch, engine, cache, seq):
 # ------------------------------------------------------------ phase 5
 def train_launch_schedule(cfg) -> dict:
     """Launches per train step that the remat schedule implies: the forward's
-    attentions, SSD scans and norms run once forward and once backward, and
-    the checkpointed layers run forward again in the backward pass: the
-    stacked groups of a decoder-only model (not its tail or final norm),
-    every encoder and decoder layer of whisper (not the two final norms)."""
+    attentions, SSD scans, causal convs (two a mamba layer) and norms run
+    once forward and once backward, and the checkpointed layers run forward
+    again in the backward pass: the stacked groups of a decoder-only model
+    (not its tail or final norm), every encoder and decoder layer of whisper
+    (not the two final norms)."""
     fwd = path_launches(cfg, "forward")
     if cfg.family == "encdec":
         remat = dict(flash_attention=fwd["flash_attention"], ssd_scan=0, rmsnorm=fwd["rmsnorm"] - 2)
@@ -1678,6 +1790,8 @@ def train_launch_schedule(cfg) -> dict:
     return dict(fwd, flash_attention=fwd["flash_attention"] + remat["flash_attention"],
                 flash_attention_bwd=fwd["flash_attention"],
                 ssd_scan=fwd["ssd_scan"] + remat["ssd_scan"], ssd_scan_bwd=fwd["ssd_scan"],
+                causal_conv=fwd["causal_conv"] + 2 * remat["ssd_scan"],
+                causal_conv_bwd=fwd["causal_conv"],
                 rmsnorm=fwd["rmsnorm"] + remat["rmsnorm"], rmsnorm_bwd=fwd["rmsnorm"])
 
 
@@ -1872,7 +1986,7 @@ def path_launches(cfg, path: str) -> dict:
     forward (``"forward"``) or, for whisper, one encoder pass (``"encode"``)
     implies.  A decoder-only model: every layer's norms (two each) and the
     final norm; a decode step's attention layers run B2, a forward's run B1
-    and its mamba layers B4.  Whisper: an encoder layer runs one attention
+    and its mamba layers B4 and C1 twice (the x conv, the B/C conv).  Whisper: an encoder layer runs one attention
     and two norms, a decoder layer two attentions (self and cross) and
     three norms, each stack one final norm (phases 4-10)."""
     out = {name: 0 for name, _, _ in counters()}
@@ -1895,7 +2009,8 @@ def path_launches(cfg, path: str) -> dict:
     if path == "step":
         out["decode_attention"] = len(kinds) - n_mamba
     else:
-        out.update(flash_attention=len(kinds) - n_mamba, ssd_scan=n_mamba + n_hybrid)
+        out.update(flash_attention=len(kinds) - n_mamba, ssd_scan=n_mamba + n_hybrid,
+                   causal_conv=2 * (n_mamba + n_hybrid))
     return out
 
 
@@ -2149,6 +2264,7 @@ class HostPeak:
 def plain_versions_forbidden():
     """While on, every kernel wrapper's plain version raises: a path run
     inside it went through the kernels or failed."""
+    from repro_torch.kernels.causal_conv import ops as conv_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -2159,7 +2275,8 @@ def plain_versions_forbidden():
              (norm_ops, "rmsnorm_bwd_ref"), (norm_ops, "rmsnorm_residual_ref"),
              (ssd_ops, "ssd_ref"), (ssd_ops, "ssd_bwd_ref"),
              (dec_ops, "decode_attention_partial_ref"), (norm_ops, "row_stat_ref"),
-             (norm_ops, "rmsnorm_ext_ref"), (norm_ops, "rmsnorm_ext_bwd_ref")]
+             (norm_ops, "rmsnorm_ext_ref"), (norm_ops, "rmsnorm_ext_bwd_ref"),
+             (conv_ops, "causal_conv_silu_ref"), (conv_ops, "causal_conv_silu_bwd_ref")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in names]
 
     def refuse(name):
@@ -2181,6 +2298,7 @@ def plain_versions_on_card():
     """While on, the models call the kernels' plain versions (differentiable
     PyTorch) instead of the wrappers, on whatever device their tensors are:
     a reference loss and gradients on the card."""
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu_ref
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
@@ -2198,7 +2316,7 @@ def plain_versions_on_card():
         return ssd_ref(x, dA, B, C, min(chunk, x.shape[1]), initial_state)
 
     patches = [(layers, "rmsnorm", rmsnorm), (attention, "flash_attention", flash_attention),
-               (mamba2, "ssd", ssd)]
+               (mamba2, "ssd", ssd), (mamba2, "causal_conv_silu", causal_conv_silu_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -4010,6 +4128,9 @@ def main() -> int:
         "rmsnorm_ext": ("triton", RMSNORM_SRC, "src/repro/kernels/rmsnorm/rmsnorm.py:51",
                         "dist-ssm"),
         "rmsnorm_ext_bwd": ("triton", RMSNORM_SRC, "src/repro/models/layers.py:31", "dist-ssm"),
+        # replaces no Pallas call: the JAX package's jnp conv and its SiLU
+        "causal_conv": ("cuda", CONV_SRC, "src/repro/models/mamba2.py:151", "ssm"),
+        "causal_conv_bwd": ("cuda", CONV_SRC, "src/repro/models/mamba2.py:151", "ssm-train"),
     }
     by_path = {"serve": serve_launches, "train": train_launches, "ssm": ssm_launches_all,
                "pilot": pilot_launches, "moe": moe_launches_all, "moe-train": moe_train_launches,

@@ -13,7 +13,10 @@ The wrappers are ``decode_attention.ops.decode_attention``,
 ``flash_attention.ops.flash_attention`` (an autograd Function with a
 backward kernel), ``rmsnorm.ops.rmsnorm`` (likewise) and
 ``ssd_scan.ops.ssd`` (likewise: on CUDA tensors its backward launches the
-port's own backward kernel, on CPU tensors it runs ``ssd_bwd_ref``).  Each
+port's own backward kernel, on CPU tensors it runs ``ssd_bwd_ref``) and
+``causal_conv.ops.causal_conv_silu`` (C1, the Mamba2 mixer's causal conv,
+bias and SiLU, an autograd Function both ways; it replaces no Pallas
+call).  Each
 counts its launches in integer attributes (``launches``, and
 ``backward_launches`` / ``residual_launches`` where it has them) through
 :func:`count_launch`, which takes a lock: serve and train CUs call the

@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 #: kernel name → its CUDA source, relative to this directory
 SOURCES: Dict[str, str] = {
+    "causal_conv": "causal_conv/csrc/causal_conv.cu",
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",

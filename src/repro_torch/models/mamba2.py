@@ -1,8 +1,11 @@
 """Mamba2 (SSD, state-space duality) block: the counterpart of
 ``repro.models.mamba2``.
 
-The multi-token mixer runs the chunked SSD through the hand-written chunk-scan
-kernel (:func:`repro_torch.kernels.ssd_scan.ops.ssd`), which takes B and C in
+The multi-token mixer runs its two causal convs, their biases and SiLUs
+through the hand-written kernel C1
+(:func:`repro_torch.kernels.causal_conv.ops.causal_conv_silu`) and the
+chunked SSD through the chunk-scan kernel
+(:func:`repro_torch.kernels.ssd_scan.ops.ssd`), which takes B and C in
 their group layout, so they are never repeated to the heads.  Decode is O(1)
 per token: a [B, H, P, N] fp32 state and two conv windows, updated in place
 in the layer's cache slice.  Rounding follows the JAX package: the conv, its
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from .. import tracing
 from ..configs.base import ModelConfig
 from ..distributed.context import is_dtensor
+from ..kernels.causal_conv.ops import causal_conv_silu
 from ..kernels.ssd_scan.ops import ssd
 from .layers import _normal, dt, init_dense, rms_norm
 
@@ -81,17 +85,6 @@ def init_mamba_block(
 
 
 # ----------------------------------------------------------- block forward
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over the sequence dim in fp32; xbc [B, S, Ch],
-    w [W, Ch].  The taps are added in the JAX package's order."""
-    width, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
-    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
-    for i in range(width):
-        out = out + pad[:, i : i + s].float() * w[i].float()
-    return out + b.float()
-
-
 #: a norm of the gate's rows: (y, scale) -> normalised y
 GateNorm = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -151,8 +144,9 @@ def _mixer(params, u, cfg, initial_state, norm, groups):
     h, d_inner = params["dt_bias"].shape[-1], params["x_proj"]["w"].shape[-1]
     p, n, g = dims["head_dim"], dims["d_state"], dims["n_groups"]
     z, xr, bc, dt_raw = projections(params, u)
-    xc = F.silu(_causal_conv(xr, params["conv_x_w"], params["conv_x_b"]))
-    bcc = F.silu(_causal_conv(bc, params["conv_bc_w"], params["conv_bc_b"]))
+    xc = causal_conv_silu(xr, params["conv_x_w"], params["conv_x_b"])
+    bcc = causal_conv_silu(bc, params["conv_bc_w"], params["conv_bc_b"])
+    tracing.count({"mamba.conv_fused": 2})  # the two calls of C1
     x = xc.reshape(b, s, h, p)
     B_, C_ = _split(bcc, g, n, groups)
     dt_ = F.softplus(dt_raw.float() + params["dt_bias"])  # [B, S, H]

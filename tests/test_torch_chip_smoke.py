@@ -61,6 +61,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     from repro_torch.configs import base, registry
     from repro_torch.configs.zamba2_1_2b_published import CONFIG as ZAMBA2_PUBLISHED
     from repro_torch.kernels import count_launch
+    from repro_torch.kernels.causal_conv import ops as conv_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -136,6 +137,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         SSD_BWD_EDGE_CASES=[("initial state, dfinal", 1, 32, 4, 16, 8, 2, 16, True, True, False),
                             ("unaligned rows, chunk 10", 1, 30, 2, 16, 16, 1, 10, True, True,
                              True)],
+        CONV_CASES=[("x conv", 2, 40, 64, 4, "bfloat16"), ("B/C conv, fp32", 2, 40, 16, 4,
+                                                             "float32")],
+        CONV_EDGE_CASES=[("odd channels", 1, 9, 13, 3, "bfloat16"),
+                         ("S < width", 1, 3, 8, 4, "float32")],
         SSM_TRAIN_BATCH=2, SSM_TRAIN_SEQ=32, SSM_REMAT_LAYERS=1,
         SSM_MODELS=("tiny-mamba", "tiny-zamba"), HYBRID_MODEL="tiny-hybrid", SSM_PROMPT_LEN=25,
         SSM_NEW_TOKENS=8, SSM_MAX_LEN=32, SSM_BATCH=2, SSM_CHECK_POSITIONS=(0, 15, 16, 31),
@@ -222,6 +227,10 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         norm_ops.rmsnorm_ext_ref, norm_ops.rmsnorm, "ext_launches"))
     monkeypatch.setattr(norm_ops, "rmsnorm_ext_bwd_ref", counting(
         norm_ops.rmsnorm_ext_bwd_ref, norm_ops.rmsnorm, "ext_backward_launches"))
+    monkeypatch.setattr(conv_ops, "causal_conv_silu_ref", counting(
+        conv_ops.causal_conv_silu_ref, conv_ops.causal_conv_silu))
+    monkeypatch.setattr(conv_ops, "causal_conv_silu_bwd_ref", counting(
+        conv_ops.causal_conv_silu_bwd_ref, conv_ops.causal_conv_silu, "backward_launches"))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -238,13 +247,16 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}}
     kernels = {k["name"]: k for k in json.loads(lines[-2])["kernels"]}
-    assert sorted(kernels) == ["decode_attention", "decode_attention_partial", "flash_attention",
+    assert sorted(kernels) == ["causal_conv", "causal_conv_bwd", "decode_attention",
+                               "decode_attention_partial", "flash_attention",
                                "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "rmsnorm_ext",
                                "rmsnorm_ext_bwd", "rmsnorm_residual", "rmsnorm_stat", "ssd_scan",
                                "ssd_scan_bwd"]
     # the sharded paths' modes: 0 on every unsharded path
     new = {"decode_attention_partial": 0, "rmsnorm_stat": 0, "rmsnorm_ext": 0,
            "rmsnorm_ext_bwd": 0}
+    # C1: 0 on every path without a mamba layer
+    no_conv = {"causal_conv": 0, "causal_conv_bwd": 0}
     steps = 10 + 4 - 1
     assert kernels["decode_attention"]["launches"] == 8 * steps
     assert kernels["rmsnorm"]["launches"] == 17 * steps
@@ -260,6 +272,9 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     # two forwards at 7 layers (6 mamba) and state check; the decode runs no B4
     assert kernels["ssd_scan"]["launches"] == (2 + 2 + 1 + 2 * 3) + (6 + 6 + 1)
     assert kernels["ssd_scan"]["launches_by_path"]["serve"] == 0
+    # C1 twice wherever B4 runs (the x conv and the B/C conv); no backward
+    assert kernels["causal_conv"]["launches"] == 2 * kernels["ssd_scan"]["launches"]
+    assert kernels["causal_conv_bwd"]["launches_by_path"]["ssm"] == 0
     ssm = kernels["decode_attention"]["launches_by_path"]["ssm"]
     assert ssm == 1 * 2 * (25 + 8 - 1)  # tiny-zamba's shared attention, bf16 and fp32 decode
     assert kernels["flash_attention"]["launches_by_path"]["ssm"] == 2
@@ -270,7 +285,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert pilot == {"flash_attention": 4 * 6, "flash_attention_bwd": 4 * 3,
                      "rmsnorm": 4 * 13 + 2 * 17 * 8, "rmsnorm_bwd": 4 * 7,
                      "decode_attention": 2 * 8 * 8, "rmsnorm_residual": 0, "ssd_scan": 0,
-                     "ssd_scan_bwd": 0, **new}
+                     "ssd_scan_bwd": 0, **new, **no_conv}
     # B2's cases: one device kernel a call, and the main path's split plans
     dec = kernels["decode_attention"]["cases"]
     assert all(c["device_kernels"] == ["decode_attention_kernel"] for c in dec)
@@ -285,13 +300,13 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert n_fwd in (2, 3)
     assert moe == {"decode_attention": 2 * 2 * 13, "rmsnorm": 2 * 5 * 13 + 5 * n_fwd,
                    "flash_attention": 2 * n_fwd, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                   "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
+                   "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new, **no_conv}
     # moe-train: 2 evals (2 attention, 5 norms each) and 4 remat steps (2 + 2
     # attention forwards, 2 backwards; 5 + 4 norm forwards, 5 backwards)
     moe_train = {name: k["launches_by_path"]["moe-train"] for name, k in kernels.items()}
     assert moe_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
                          "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
-                         "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
+                         "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new, **no_conv}
     # whisper (2 encoder + 2 decoder layers): the cross-cache prefill's encoder
     # (2 attentions, 5 norms), 4 + 6 - 1 engine steps and the one after them
     # (two decode attentions and 7 norms each), the forward (2 + 2 x 2
@@ -302,7 +317,7 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     assert whisper == {"decode_attention": 10 * 4, "flash_attention": 2 + 6 + 2 * 6 + 4 * 12,
                        "flash_attention_bwd": 4 * 6, "rmsnorm": 5 + 10 * 7 + 12 + 2 * 12 + 4 * 22,
                        "rmsnorm_bwd": 4 * 12, "rmsnorm_residual": 0, "ssd_scan": 0,
-                       "ssd_scan_bwd": 0, **new}
+                       "ssd_scan_bwd": 0, **new, **no_conv}
     # ssm-train: tiny-mamba (3 mamba layers, each its own stacked group),
     # tiny-zamba (a group of 5 mamba + the shared attention block, a tail of 2
     # mamba) and tiny-hybrid (a group of 5 mamba + a hybrid layer, a tail of
@@ -316,7 +331,9 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
         "flash_attention": 2 * (2 * 1 + 4 * 2), "flash_attention_bwd": 2 * 4 * 1,
         "rmsnorm": (2 * 7 + 4 * (7 + 6)) + (2 * 17 + 4 * (17 + 12)) + (2 * 19 + 4 * (19 + 14)),
         "rmsnorm_bwd": 4 * 7 + 4 * 17 + 4 * 19, "decode_attention": 0, "rmsnorm_residual": 0,
-        **new}
+        # C1 twice each time B4 runs, forward and backward
+        "causal_conv": 2 * ((2 * 3 + 4 * (3 + 3)) + (2 * 7 + 4 * (7 + 5)) + (2 * 8 + 4 * (8 + 6))),
+        "causal_conv_bwd": 2 * (4 * 3 + 4 * 7 + 4 * 8), **new}
     assert kernels["ssd_scan_bwd"]["launches"] == ssm_train["ssd_scan_bwd"]
     # dense-serve: tiny-danube (2 layers) decodes 10 + 4 - 1 steps and the
     # engine's next one, then runs the forward; tiny-granite (1 layer) 8 + 4 - 1
@@ -324,21 +341,21 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     dense = {name: k["launches_by_path"]["dense-serve"] for name, k in kernels.items()}
     assert dense == {"decode_attention": 14 * 2 + 12 * 1, "rmsnorm": (14 * 5 + 5) + (12 * 3 + 3),
                      "flash_attention": 2 + 1, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                     "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
+                     "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new, **no_conv}
     # dense-train: tiny-granite (2 layers, 48/1 heads), 2 evals (2 attention,
     # 5 norms each) and 4 remat steps (2 + 2 attention forwards, 2 backwards;
     # 5 + 4 norm forwards, 5 backwards)
     dense_train = {name: k["launches_by_path"]["dense-train"] for name, k in kernels.items()}
     assert dense_train == {"flash_attention": 2 * 2 + 4 * 4, "flash_attention_bwd": 4 * 2,
                            "rmsnorm": 2 * 5 + 4 * 9, "rmsnorm_bwd": 4 * 5, "decode_attention": 0,
-                           "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
+                           "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new, **no_conv}
     # dist-train: tiny-moe (2 layers) through the sharded step, 3 remat steps
     # (2 + 2 attention forwards, 2 backwards; 5 + 4 norm forwards, 5
     # backwards), equal to the unsharded step's
     dist_train = {name: k["launches_by_path"]["dist-train"] for name, k in kernels.items()}
     assert dist_train == {"flash_attention": 3 * 4, "flash_attention_bwd": 3 * 2,
                           "rmsnorm": 3 * 9, "rmsnorm_bwd": 3 * 5, "decode_attention": 0,
-                          "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new}
+                          "rmsnorm_residual": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, **new, **no_conv}
     # dist-ssm: tiny-mamba (2 mamba layers, each a stacked group) through the
     # sharded step, 3 remat steps: its gate norms (2 forward, 2 again in the
     # recompute, 2 backward) on the external-statistic mode, one row
@@ -346,7 +363,8 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
     # backward), B4 2 + 2 forward and 2 backward
     dist_ssm = {name: k["launches_by_path"]["dist-ssm"] for name, k in kernels.items()}
     assert dist_ssm == {**{name: 0 for name in dist_ssm},
-                        "ssd_scan": 3 * 4, "ssd_scan_bwd": 3 * 2, "rmsnorm": 3 * 5,
+                        "ssd_scan": 3 * 4, "ssd_scan_bwd": 3 * 2, "causal_conv": 3 * 8,
+                        "causal_conv_bwd": 3 * 4, "rmsnorm": 3 * 5,
                         "rmsnorm_bwd": 3 * 3, "rmsnorm_ext": 3 * 4, "rmsnorm_ext_bwd": 3 * 2,
                         "rmsnorm_stat": 3 * 6}
     # dist-decode: tiny cut to 6 layers, 10 + 4 steps sharded: B2's partial
@@ -368,6 +386,9 @@ def test_phases_run_on_cpu_at_tiny_size(monkeypatch, capsys):
                  "granite-34b train, G 6", "granite-34b train, G 12"):
         assert case in fwd and case in bwd
     assert kernels["ssd_scan_bwd"]["library_ms"] is None
+    # C1's timed cases and the library yardstick beside them
+    assert [c["case"] for c in kernels["causal_conv"]["cases"]] == ["x conv", "B/C conv, fp32"]
+    assert all(c["library_ms"] is not None for c in kernels["causal_conv_bwd"]["cases"])
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "max_err",
             "launches_by_path"}

@@ -830,6 +830,71 @@ def test_ssd_backward_kernels_do_not_spill(cuda):
         assert regs <= limit, fn
 
 
+# C1: (B, S, C, width): the x conv of a tensor-parallel rank's 512 channels,
+# the B/C conv's 128, an odd count (element loads), S shorter than the width,
+# and tiles that end off a block's edge
+CONV_CASES = [(2, 333, 512, 4), (3, 100, 128, 4), (2, 77, 99, 3), (2, 3, 64, 4),
+              (1, 1000, 136, 2)]
+
+
+def _conv_grads(x, w, b, dy):
+    from repro_torch.kernels.causal_conv.ops import causal_conv_silu
+
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    y = causal_conv_silu(*leaves)
+    return (y, *torch.autograd.grad(y, leaves, dy))
+
+
+@pytest.mark.parametrize("b,s,c,width", CONV_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+def test_causal_conv_kernel_matches_plain(cuda, b, s, c, width, dtype, strided):
+    """C1 both ways against its plain version: y within 1e-4 relative (fp32
+    out; the SiLU's exp differs by an ulp or two between the card and the
+    plain version); dx within x's dtype's tolerance, dw and db (sums over
+    every row and position, in another order) with the absolute term 1e-5 x
+    their largest |value|; a second backward gives the same bits.  Strided:
+    x as a view of a wider row (its channels off a 16-byte boundary) and w
+    as one leaf of a stacked group."""
+    from repro_torch.kernels.causal_conv import ops
+    from repro_torch.kernels.causal_conv.ref import (causal_conv_silu_bwd_ref,
+                                                    causal_conv_silu_ref)
+
+    gen = torch.Generator(device=cuda).manual_seed(s + c + width)
+    wide = torch.randn(b, s, c + 3, generator=gen, device=cuda).to(dtype)
+    x = wide[..., 3:] if strided else wide[..., :c].contiguous()
+    stacked = (torch.randn(2, width, c, generator=gen, device=cuda) * 0.5).to(dtype)
+    w = stacked[1] if strided else stacked[1].clone()
+    bias = (torch.randn(c, generator=gen, device=cuda) * 0.1).to(dtype)
+    dy = torch.randn(b, s, c, generator=gen, device=cuda)
+    before = (ops.causal_conv_silu.launches, ops.causal_conv_silu.backward_launches)
+    y, dx, dw, db = _conv_grads(x, w, bias, dy)
+    again = _conv_grads(x, w, bias, dy)
+    assert (ops.causal_conv_silu.launches, ops.causal_conv_silu.backward_launches) == (
+        before[0] + 2, before[1] + 2)
+    ref_dx, ref_dw, ref_db = causal_conv_silu_bwd_ref(x, w, bias, dy)
+    _close(y, causal_conv_silu_ref(x, w, bias), torch.float32)
+    assert y.dtype == torch.float32 and dx.dtype == dw.dtype == db.dtype == dtype
+    _close(dx, ref_dx, dtype)
+    _close_grad(dw, ref_dw, dtype)
+    _close_grad(db, ref_db, dtype)
+    for got, want in zip((y, dx, dw, db), again):
+        assert torch.equal(got, want)
+
+
+def test_causal_conv_kernel_refuses_what_it_has_no_instance_for(cuda):
+    from repro_torch.kernels.causal_conv.ops import causal_conv_silu
+
+    x = torch.randn(1, 8, 16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        causal_conv_silu(x, torch.randn(5, 16, device=cuda), torch.zeros(16, device=cuda))
+    with pytest.raises(TypeError):
+        causal_conv_silu(x.half(), torch.randn(4, 16, device=cuda), torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError):
+        causal_conv_silu(x.transpose(1, 2), torch.randn(4, 8, device=cuda),
+                         torch.zeros(8, device=cuda))
+
+
 def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
     """A mamba2 and a zamba2 smoke model (head_dim 64, d_state 64) on the
     card with every plain version made to raise: the forward runs B4 in
@@ -839,6 +904,7 @@ def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SSMConfig
+    from repro_torch.kernels.causal_conv import ops as conv_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -849,7 +915,8 @@ def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
         raise AssertionError("a plain version ran on the card")
 
     for mod, name in ((fa_ops, "flash_attention_ref"), (dec_ops, "decode_attention_ref"),
-                      (norm_ops, "rmsnorm_ref"), (ssd_ops, "ssd_ref")):
+                      (norm_ops, "rmsnorm_ref"), (ssd_ops, "ssd_ref"),
+                      (conv_ops, "causal_conv_silu_ref")):
         monkeypatch.setattr(mod, name, boom)
     for arch, n_layers in (("mamba2-370m", 2), ("zamba2-1.2b", 8)):
         cfg = dataclasses.replace(
@@ -859,11 +926,14 @@ def test_ssm_models_on_card_run_no_plain_version(cuda, monkeypatch):
         params = api.init(seed=0)
         tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
         n_mamba = cfg.layer_kinds().count("mamba")
-        before = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+        before = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches,
+                  conv_ops.causal_conv_silu.launches)
         with torch.no_grad():
             full = api.forward(params, tokens).float()
-            after = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
-            assert after == (before[0] + n_mamba, before[1] + n_layers - n_mamba)
+            after = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches,
+                     conv_ops.causal_conv_silu.launches)
+            assert after == (before[0] + n_mamba, before[1] + n_layers - n_mamba,
+                             before[2] + 2 * n_mamba)
             cache = api.init_cache(2, 64)
             for i in range(64):
                 lg, cache = api.decode_step(params, cache, tokens[:, i : i + 1], i)
@@ -1073,6 +1143,7 @@ def _to(tree, device):
 
 
 def _refuse_plain_versions(monkeypatch):
+    from repro_torch.kernels.causal_conv import ops as conv_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
@@ -1084,7 +1155,8 @@ def _refuse_plain_versions(monkeypatch):
     for mod, name in ((fa_ops, "flash_attention_ref"), (fa_ops, "flash_attention_bwd_ref"),
                       (dec_ops, "decode_attention_ref"), (norm_ops, "rmsnorm_ref"),
                       (norm_ops, "rmsnorm_bwd_ref"), (norm_ops, "rmsnorm_residual_ref"),
-                      (ssd_ops, "ssd_ref"), (ssd_ops, "ssd_bwd_ref")):
+                      (ssd_ops, "ssd_ref"), (ssd_ops, "ssd_bwd_ref"),
+                      (conv_ops, "causal_conv_silu_ref"), (conv_ops, "causal_conv_silu_bwd_ref")):
         monkeypatch.setattr(mod, name, boom)
 
 

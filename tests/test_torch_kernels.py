@@ -226,6 +226,7 @@ def _c_struct_fields(src: str, name: str):
     ("flash_attention", "flash_attention", "FlashArgs"),
     ("ssd_scan", "ssd_scan", "SsdArgs"),
     ("ssd_scan_bwd", "ssd_scan", "SsdBwdArgs"),
+    ("causal_conv", "causal_conv", "ConvArgs"),
 ])
 def test_ctypes_args_mirror_the_c_struct(kernel, package, struct):
     """The ctypes structure a wrapper passes to a CUDA entry point has the C

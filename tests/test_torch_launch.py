@@ -21,7 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import SHAPES, get_config, get_shape, list_archs
-from repro_torch.kernels import decode_attention, flash_attention, rmsnorm, ssd_scan
+from repro_torch.kernels import causal_conv, decode_attention, flash_attention, rmsnorm, ssd_scan
 from repro_torch.launch import dryrun, kernel_substitution as ks, roofline
 from repro_torch.launch.op_analysis import OpAnalysis
 
@@ -414,9 +414,11 @@ def _counts():
     fa, norm, ssd = (flash_attention.ops.flash_attention, rmsnorm.ops.rmsnorm,
                      ssd_scan.ops.ssd)
     da = decode_attention.ops.decode_attention
+    conv = causal_conv.ops.causal_conv_silu
     return (da.launches, da.partial_launches, fa.launches, fa.backward_launches,
             norm.launches, norm.backward_launches, norm.residual_launches, norm.stat_launches,
-            norm.ext_launches, norm.ext_backward_launches, ssd.launches, ssd.backward_launches)
+            norm.ext_launches, norm.ext_backward_launches, ssd.launches, ssd.backward_launches,
+            conv.launches, conv.backward_launches)
 
 
 
@@ -472,6 +474,15 @@ def _case(name):
         return (lambda dev: list(rn.rmsnorm_ext_bwd(
             r.to(dev), x.to(dev), w.to(dev), ss.to(dev), c.to(dev), 256)),
             rn.ext_cost(6, 128, backward=True))
+    if name in ("causal_conv", "causal_conv_bwd"):
+        cc = causal_conv.ops
+        xc, wc, bc = rnd(2, 40, 96, dtype=bf), rnd(4, 96, dtype=bf), rnd(96, dtype=bf)
+        if name == "causal_conv":
+            return (lambda dev: [cc.causal_conv_silu(*(t.to(dev) for t in (xc, wc, bc)))],
+                    cc.cost(2, 40, 96, 4))
+        dy = rnd(2, 40, 96)
+        return (lambda dev: list(cc.causal_conv_silu_bwd(*(t.to(dev) for t in (xc, wc, bc, dy)))),
+                cc.bwd_cost(2, 40, 96, 4))
     x, dA, B, C = rnd(2, 64, 4, 64), -rnd(2, 64, 4).abs(), rnd(2, 64, 1, 128), rnd(2, 64, 1, 128)
     if name == "ssd_scan":
         return (lambda dev: sd.ssd(*(t.to(dev) for t in (x, dA, B, C)), 32),
@@ -487,7 +498,8 @@ def _case(name):
 
 KERNELS = ["flash_attention", "flash_attention_bwd", "decode_attention",
            "decode_attention_partial", "rmsnorm", "rmsnorm_residual", "rmsnorm_bwd",
-           "rmsnorm_stat", "rmsnorm_ext", "rmsnorm_ext_bwd", "ssd_scan", "ssd_scan_bwd"]
+           "rmsnorm_stat", "rmsnorm_ext", "rmsnorm_ext_bwd", "ssd_scan", "ssd_scan_bwd",
+           "causal_conv", "causal_conv_bwd"]
 
 
 @pytest.mark.parametrize("name", KERNELS)
