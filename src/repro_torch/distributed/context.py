@@ -117,6 +117,18 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
+def to_local(x):
+    """A ``DTensor`` 's local shard, which shares its storage; a plain
+    tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def full_tensor(x):
+    """A ``DTensor`` 's whole value on every rank; a plain tensor as it
+    is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def _divides(n: int, k: int) -> bool:
     return k > 0 and n % k == 0
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..configs.base import ModelConfig
-from .context import DistContext, is_dtensor
+from .context import DistContext, full_tensor, is_dtensor
 
 #: tree prefixes that stack per-layer params with one leading dim
 _STACKED_KEYS = ("groups", "encoder", "decoder")
@@ -225,5 +225,4 @@ def distribute_tree(tree: Any, specs: Any, ctx: DistContext) -> Any:
 def gather_tree(tree: Any) -> Any:
     """The full tensors of a tree of ``DTensor`` s (plain leaves as they
     are), on every rank."""
-    return tree_map_with_path(
-        lambda _, t: t.full_tensor() if is_dtensor(t) else t, tree)
+    return tree_map_with_path(lambda _, t: full_tensor(t), tree)

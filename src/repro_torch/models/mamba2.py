@@ -146,7 +146,6 @@ def _mixer(params, u, cfg, initial_state, norm, groups):
     z, xr, bc, dt_raw = projections(params, u)
     xc = causal_conv_silu(xr, params["conv_x_w"], params["conv_x_b"])
     bcc = causal_conv_silu(bc, params["conv_bc_w"], params["conv_bc_b"])
-    tracing.count({"mamba.conv_fused": 2})  # the two calls of C1
     x = xc.reshape(b, s, h, p)
     B_, C_ = _split(bcc, g, n, groups)
     dt_ = F.softplus(dt_raw.float() + params["dt_bias"])  # [B, S, H]

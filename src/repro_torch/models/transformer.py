@@ -112,19 +112,10 @@ def _group_unbind(tree: Dict, n: int) -> List[Dict]:
     (:func:`_group_slice`) would each fill a zero tensor of the whole leaf
     and autograd would add the n of them.  Not for a cache written in place:
     autograd refuses in-place writes to ``unbind``'s outputs."""
-    split = 0
-
-    def slices(t):
-        nonlocal split
-        if isinstance(t, dict):
-            parts = {k: slices(v) for k, v in t.items()}
-            return [{k: p[i] for k, p in parts.items()} for i in range(n)]
-        split += 1
-        return t.unbind(0)
-
-    out = slices(tree)
-    tracing.count({"groups.unbound": split})
-    return out
+    if isinstance(tree, dict):
+        parts = {k: _group_unbind(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 # ------------------------------------------------------------------- init
@@ -240,7 +231,6 @@ def _shared_call(
     """L_i T: the shared block over [x ; e] with call i's adapters (no
     residual inside it), then call i's linear; ``own`` holds call i's
     ``lora`` and ``linear``."""
-    tracing.count({"shared.applied": 1})
     h = rms_norm(torch.cat([x, emb], dim=-1), shared["ln1"], cfg.norm_eps)
     t = shared_attention_block(shared["attn"], own["lora"], h, cfg, rope)
     t = geglu_mlp(rms_norm(t, shared["ln2"], cfg.norm_eps), shared["mlp"], own["lora"]["gate_up"])

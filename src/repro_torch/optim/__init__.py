@@ -6,7 +6,6 @@ from .adamw import (
     AdamWConfig,
     adamw_update,
     clip_by_global_norm,
-    global_norm,
     init_adamw,
 )
 from .schedules import warmup_cosine
@@ -15,7 +14,6 @@ __all__ = [
     "AdamWConfig",
     "adamw_update",
     "clip_by_global_norm",
-    "global_norm",
     "init_adamw",
     "warmup_cosine",
 ]

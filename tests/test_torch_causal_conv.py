@@ -10,9 +10,7 @@
   saves nothing but its inputs;
 * on meta tensors: the kernel's output shapes and dtypes, its instance
   checks, each launch reported with ``cost`` / ``bwd_cost``;
-* ``mamba_block`` gives the output the mixer gave with the plain chain,
-  and the counter ``mamba.conv_fused`` counts both convs of each mixer
-  once a traced first forward (not in remat's recompute).
+* ``mamba_block`` gives the output the mixer gave with the plain chain.
 """
 
 import dataclasses
@@ -25,11 +23,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch.nn.functional as F  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro.models.mamba2 import _causal_conv as jax_causal_conv  # noqa: E402
-from repro_torch import kernels, tracing  # noqa: E402
-from repro_torch.checkpoint import flatten_tree  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.causal_conv import ops  # noqa: E402
 from repro_torch.kernels.causal_conv.ref import (  # noqa: E402
@@ -232,39 +228,3 @@ def test_mixer_output_as_before(dtype, monkeypatch):
     for g, h in zip(new[2], old[2]):
         torch.testing.assert_close(g.float(), h.float(), rtol=tol,
                                    atol=tol * h.float().abs().max().item())
-
-
-@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-1.2b"])
-def test_conv_fused_counted_once_a_first_forward(name):
-    """``mamba.conv_fused``: two a mixer (the x conv and the B/C conv) each
-    traced forward; remat's recompute adds none; nothing with the profiler
-    off."""
-    layers = {"mamba2-370m": 3, "zamba2-1.2b": 8}[name]
-    cfg = dataclasses.replace(get_config(name + "-smoke"), n_layers=layers)
-    api = build_model(cfg, device="cpu")
-    params = api.init(seed=0)
-    kinds = cfg.layer_kinds()
-    mixers = kinds.count("mamba") + kinds.count("hybrid")
-    gen = torch.Generator().manual_seed(0)
-    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
-             for k in ("tokens", "labels")}
-
-    def grads():
-        tensors = [t.requires_grad_(True) for _, t in flatten_tree(params)]
-        loss, _ = api.loss_fn(params, batch, remat=True)
-        torch.autograd.grad(loss, tensors, allow_unused=True)
-
-    tracing.reset_counters()
-    try:
-        grads()
-        assert "mamba.conv_fused" not in tracing.counters()
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            grads()
-        assert any(e.name == "recompute" for e in prof.events())
-        assert tracing.counters()["mamba.conv_fused"] == 2 * mixers
-        tracing.reset_counters()
-        with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
-            api.forward(params, batch["tokens"])
-        assert tracing.counters()["mamba.conv_fused"] == 2 * mixers
-    finally:
-        tracing.reset_counters()

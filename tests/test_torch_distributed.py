@@ -45,7 +45,8 @@ which both read from ``.npz`` files.
   step: 1e-4 of max(1, max |ref|) for the metrics and the moments, 2e-4
   for the params and masters (the tolerances of
   ``tests/test_torch_training.py``: fp32 sums in another order, amplified
-  by m / sqrt(v) near 0).  Against the unsharded step the MoE configs drop
+  by m / sqrt(v) near 0).  Every gathered param equals its gathered
+  master in the param's dtype.  Against the unsharded step the MoE configs drop
   nothing (capacity factor E / k) and weigh the aux loss 0: the sharded
   step routes, caps and averages the aux loss over each rank's tokens, as
   JAX's does, which the whole batch does not.  The first case also runs
@@ -939,6 +940,9 @@ def _compare(port: dict, prefix: str, ref, skip=()) -> None:
             continue
         got, want = port[prefix + key], ref[key]
         assert np.shape(got) == np.shape(want), key
+        if key.startswith("params/"):  # each param its master in the param's dtype
+            master = port[prefix + "opt/master/" + key[len("params/"):]]
+            assert np.array_equal(got, master.astype(got.dtype)), key
         if key.startswith("opt/step"):
             assert int(got) == int(want) == 2
             continue

@@ -10,9 +10,6 @@ capacity factor 0.5 so that pairs are dropped), remat on, on the CPU:
 * the MoE counters equal a count made here from the router's top-k and
   ``_capacity`` on the inputs each MoE layer received, once a forward
   (remat's recompute adds nothing);
-* ``groups.unbound`` counts the stacked leaves that ``_group_unbind`` split,
-  once a traced forward, not again in remat's recompute, and not at all
-  with the profiler off;
 * the loss, every gradient and the updated state are bit for bit the same
   with the profiler on and off, and when it starts or stops between a
   forward and its backward;
@@ -189,33 +186,10 @@ def test_counters_match_the_router(model, monkeypatch):
     *_, events = _step(api, params, batch, traced=True)
     assert len(calls) == LAYERS and len(_named(events, "recompute")) == LAYERS + 1
     got, want = tracing.counters(), _expected_counts(calls, api.cfg)
-    assert got == dict(want, **{"groups.unbound": _stacked_leaves(params)})
+    assert got == want
     assert got["moe.dropped"] > 0  # capacity factor 0.5 drops
     assert got["moe.rows_filled"] == got["moe.routed"] - got["moe.dropped"]
     assert got["moe.rows_filled"] < got["moe.rows"]
-
-
-def _stacked_leaves(params) -> int:
-    return len(flatten_tree(params["groups"]))
-
-
-@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
-def test_groups_unbound_counted_once_a_forward(model, remat):
-    """``groups.unbound``: the stacked leaves ``_group_unbind`` split, once
-    a traced forward; remat's recompute does not split them again; nothing
-    with the profiler off."""
-    api, params, batch = model
-    _grads(api, params, batch, remat)
-    assert tracing.counters() == {}
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _grads(api, params, batch, remat)
-    assert len(_named(prof.events(), "recompute")) == (LAYERS + 1 if remat else 1)
-    assert tracing.counters()["groups.unbound"] == _stacked_leaves(params) == 10
-    tracing.reset_counters()
-    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
-        api.forward(params, batch["tokens"])
-        api.forward(params, batch["tokens"])
-    assert tracing.counters()["groups.unbound"] == 2 * _stacked_leaves(params)
 
 
 def _assert_same(a, b, what):

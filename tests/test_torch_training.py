@@ -9,7 +9,13 @@ masks):
 * one and two ``make_train_step`` steps against JAX ``make_train_step`` with
   microbatches 1 and 2: loss, grad_norm and lr of every step, then every
   param and every ``opt/`` leaf;
-* the train state through checkpoint files both ways.
+* the train state through checkpoint files both ways;
+* after two steps of a bf16 MoE and a bf16 hybrid model, every param is
+  its fp32 master rounded to the param's dtype, and masters and moments
+  are fp32;
+* the clip: the step reports the norm of the raw gradients, and the first
+  moment after step 1 is (1 - b1) x min(1, max / norm) x g, clipping and
+  not.
 
 Tolerances (max |port - JAX| over max(1, max |JAX|)): 1e-4 for losses,
 logits, grad norms, lrs and the AdamW moments; 2e-4 for params after the
@@ -39,7 +45,7 @@ from repro_torch.bridge import train_state_from_files
 from repro_torch.checkpoint import checkpoint_files, flatten_tree
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
-from repro_torch.optim import init_adamw
+from repro_torch.optim import AdamWConfig, init_adamw
 from repro_torch.training import make_eval_step, make_train_step
 
 MODEL = "h2o-danube-1.8b-smoke"
@@ -189,3 +195,50 @@ def test_batch_spec_matches_jax():
     assert {k: (s, str(d).split(".")[-1]) for k, (s, d) in spec.items()} == {
         k: (s, jnp.dtype(d).name) for k, (s, d) in jspec.items()
     }
+
+
+@pytest.mark.parametrize("name,layers", [("granite-moe-3b-a800m", 3), ("zamba2-1.2b", 8)],
+                         ids=["moe", "hybrid"])
+def test_step_writes_each_param_from_its_master(name, layers):
+    cfg = dataclasses.replace(get_config(name + "-smoke"), n_layers=layers,
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    api = build_model(cfg, device="cpu")
+    params = api.init(seed=0)
+    opt = init_adamw(params)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+             for k in ("tokens", "labels")}
+    step = make_train_step(api, **STEP_KW)
+    first = {p: t.detach().clone() for p, t in flatten_tree(params)}
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch)
+    masters = dict(flatten_tree(opt["master"]))
+    moments = dict(flatten_tree(opt["m"])), dict(flatten_tree(opt["v"]))
+    leaves = flatten_tree(params)
+    assert any(not torch.equal(t, first[p]) for p, t in leaves)
+    # most leaves are bf16; the router's and the SSM's fp32 ones equal their masters
+    assert sum(p.dtype == torch.bfloat16 for _, p in leaves) > len(leaves) // 2
+    for path, p in leaves:
+        assert masters[path].dtype == torch.float32, path
+        assert all(m[path].dtype == torch.float32 for m in moments), path
+        assert torch.equal(p, masters[path].to(p.dtype)), path
+
+
+@pytest.mark.parametrize("clip", [0.5, 2.0], ids=["clips", "does-not-clip"])
+def test_clip_reports_the_norm_before_clipping(clip):
+    api, params, opt, batch = _port_state()
+    tensors = [t.requires_grad_(True) for _, t in flatten_tree(params)]
+    loss, _ = api.loss_fn(params, batch, remat=True)
+    raw = torch.autograd.grad(loss, tensors)
+    total = torch.zeros(())
+    for g in raw:
+        total = total + g.square().sum()
+    norm = total.sqrt()
+    max_norm = clip * float(norm)
+    step = make_train_step(api, max_grad_norm=max_norm, **STEP_KW)
+    _, opt, metrics = step(params, opt, batch)
+    torch.testing.assert_close(metrics["grad_norm"], norm, rtol=1e-6, atol=0)
+    scale = min(1.0, max_norm / float(norm))
+    b1 = AdamWConfig().b1
+    for (path, m), g in zip(flatten_tree(opt["m"]), raw):
+        torch.testing.assert_close(m, (1 - b1) * scale * g, rtol=1e-5, atol=1e-12, msg=path)

@@ -22,7 +22,6 @@ if str(ROOT) not in sys.path:  # the benchmark's reference lives beside src/
 
 from portbench import weights  # noqa: E402
 from portbench.reference import common, zamba2  # noqa: E402
-from repro_torch import tracing  # noqa: E402
 from repro_torch.checkpoint import flatten_tree  # noqa: E402
 from repro_torch.configs.base import ModelConfig, SSMConfig  # noqa: E402
 from repro_torch.configs.zamba2_1_2b_published import CONFIG as PUBLISHED  # noqa: E402
@@ -130,12 +129,11 @@ def test_bf16_against_the_references_rounding(remat):
 
 def test_shared_block_spans_and_counter():
     """While the profiler records, a forward calls the shared block once a
-    hybrid layer (``shared.applied``), inside the ``shared`` span, and each
-    Mamba2 mixer inside ``mamba``; their backward spans follow."""
+    hybrid layer, inside the ``shared`` span, and each Mamba2 mixer inside
+    ``mamba``; their backward spans follow."""
     api = build_model(config("float32"), device="cpu")
     params = api.init(seed=3)
     leaves = [t.requires_grad_(True) for _, t in flatten_tree(params)]
-    tracing.reset_counters()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         loss, _ = api.loss_fn(params, batch(3), remat=True)
         torch.autograd.grad(loss, leaves)
@@ -143,8 +141,6 @@ def test_shared_block_spans_and_counter():
     counts = {n: names.count(n) for n in ("shared", "shared.bwd", "mamba", "mamba.bwd")}
     # one hybrid call of 8 layers; remat recomputes the group's forward
     assert counts == {"shared": 2, "shared.bwd": 1, "mamba": 8 + 6, "mamba.bwd": 8}, counts
-    assert tracing.counters()["shared.applied"] == 1
-    tracing.reset_counters()
 
 
 def test_published_parameter_count():
